@@ -1,0 +1,271 @@
+"""Query processing (paper Algorithm 2), batched.
+
+Phase 1, label verdicts over packed words:
+  +1  reachable    (Lemma 1: DL_out(u) ∩ DL_in(v) ≠ ∅, or u == v)
+   0  unreachable  (Lemma 2: BL containment violated; Theorem 1: DL says
+                    v→u but not u→v; Theorem 2: u or v is landmark-covered
+                    and DL said no)
+  -1  unknown      → phase 2.
+Phase 2, a batched BFS pruned by a per-query admit plane (Alg 2 lines
+20/22), with queries as lanes of an (n_cap, Qc) frontier plane.
+
+Row gathers clamp ids to ``[0, n_cap)``, as the reference's gathers do:
+the engine's dead residue lanes carry ``u = n_cap``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import bitset
+from .graph import Graph, edge_mask
+
+#: per-lane edge-count-cutoff sentinel, >= any reachable edge count: marks
+#: a lane (or a padding lane) as always fresh.
+FRESH_CUT = 2**31 - 1
+
+#: element types of the BFS frontier's segment-max operand; both give
+#: bitwise-identical hits.
+FRONTIER_DTYPES = {"int8": torch.int8, "int32": torch.int32}
+
+
+@dataclass
+class PackedLabels:
+    dl_in: torch.Tensor   # (n_cap, Wk)  int32 words
+    dl_out: torch.Tensor  # (n_cap, Wk)
+    bl_in: torch.Tensor   # (n_cap, Wk') int32 words
+    bl_out: torch.Tensor  # (n_cap, Wk')
+
+    def __iter__(self):
+        return iter((self.dl_in, self.dl_out, self.bl_in, self.bl_out))
+
+
+def pack_labels(dl_in, dl_out, bl_in, bl_out) -> PackedLabels:
+    return PackedLabels(bitset.pack(dl_in), bitset.pack(dl_out),
+                        bitset.pack(bl_in), bitset.pack(bl_out))
+
+
+def rows(plane: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``plane[ids]`` with ids clamped into ``[0, n)``."""
+    return plane[ids.clamp(0, plane.shape[0] - 1).long()]
+
+
+@dataclass
+class RowBlocks:
+    """The eight gathered label rows every Alg-2 verdict rule reads."""
+    dlo_u: torch.Tensor   # DL_out[u]  (Q, Wk)
+    dli_v: torch.Tensor   # DL_in[v]
+    dlo_v: torch.Tensor   # DL_out[v]
+    dli_u: torch.Tensor   # DL_in[u]
+    blin_u: torch.Tensor  # BL_in[u]   (Q, Wk')
+    blin_v: torch.Tensor  # BL_in[v]
+    blout_v: torch.Tensor  # BL_out[v]
+    blout_u: torch.Tensor  # BL_out[u]
+
+
+def gather_rows(p: PackedLabels, u: torch.Tensor, v: torch.Tensor
+                ) -> RowBlocks:
+    return RowBlocks(rows(p.dl_out, u), rows(p.dl_in, v), rows(p.dl_out, v),
+                     rows(p.dl_in, u), rows(p.bl_in, u), rows(p.bl_in, v),
+                     rows(p.bl_out, v), rows(p.bl_out, u))
+
+
+def gather_il_rows(il, u: torch.Tensor, v: torch.Tensor):
+    """The four (Q, 2*dim) interval rows of the "il" family, or None."""
+    if il is None:
+        return None
+    il_in, il_out = il
+    return (rows(il_out, u), rows(il_out, v), rows(il_in, u), rows(il_in, v))
+
+
+def il_negative(ilo_u, ilo_v, ili_u, ili_v) -> torch.Tensor:
+    """(Q,) bool interval containment violation from gathered rows."""
+    return (ilo_u > ilo_v).any(-1) | (ili_v > ili_u).any(-1)
+
+
+def verdict_parts_rows(r: RowBlocks):
+    """(pos_lbl, bl_neg, thm) evidence masks behind the four rules."""
+    pos_lbl = bitset.intersect_any(r.dlo_u, r.dli_v)
+    bl_neg = (~bitset.subset(r.blin_u, r.blin_v)
+              | ~bitset.subset(r.blout_v, r.blout_u))
+    thm = (bitset.intersect_any(r.dlo_v, r.dli_u)
+           | bitset.intersect_any(r.dlo_u, r.dli_u)
+           | bitset.intersect_any(r.dlo_v, r.dli_v))
+    return pos_lbl, bl_neg, thm
+
+
+def _verdict(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    one = torch.ones_like(pos, dtype=torch.int8)
+    return torch.where(pos, one, torch.where(neg, one * 0, -one))
+
+
+def label_verdicts(p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
+                   il=None) -> torch.Tensor:
+    """(Q,) int8 verdicts from labels only (Alg 2 lines 6-13): the cutoff
+    verdicts with every lane fresh."""
+    return cut_verdicts(p, u, v, 1, 0, True, il=il)
+
+
+def cut_verdicts(p: PackedLabels, u, v, m_cut, m_total, d_fresh,
+                 il=None) -> torch.Tensor:
+    """(Q,) int8 verdicts with both staleness cutoffs: label positives on
+    lanes with ``m_cut < m_total`` degrade to unknown, and when ``d_fresh``
+    is False (labels carry un-rebuilt deletions) only self-queries and BL
+    negatives survive."""
+    return cut_verdicts_rows(gather_rows(p, u, v), u, v, m_cut, m_total,
+                             d_fresh, il_rows=gather_il_rows(il, u, v))
+
+
+def cut_verdicts_rows(r: RowBlocks, u, v, m_cut, m_total, d_fresh,
+                      il_rows=None) -> torch.Tensor:
+    """``cut_verdicts`` from gathered rows.  ``m_cut``/``m_total``/
+    ``d_fresh`` are tensors or Python scalars and broadcast over (Q,)."""
+    pos_lbl, bl_neg, thm = verdict_parts_rows(r)
+    same = u == v
+    m_fresh = m_cut >= m_total      # a tensor, or a bool for scalars
+    pos0 = pos_lbl | same
+    neg_lbl = bl_neg if il_rows is None else bl_neg | il_negative(*il_rows)
+    neg0 = ~pos0 & (neg_lbl | thm)
+    pos = (pos_lbl & m_fresh & d_fresh) | same
+    if isinstance(d_fresh, torch.Tensor):
+        neg = torch.where(d_fresh, neg0, ~same & bl_neg)
+    else:
+        neg = neg0 if d_fresh else ~same & bl_neg
+    return _verdict(pos, neg)
+
+
+def verdict_counts(verd: torch.Tensor, r: RowBlocks,
+                   il_rows=None) -> torch.Tensor:
+    """(4,) int32 per-family attribution [dl+, bl-, il-, thm-] of one
+    verdict batch: positives to DL, negatives to BL containment first,
+    then interval containment, then the theorem rules."""
+    _, bl_neg, _ = verdict_parts_rows(r)
+    il_neg = torch.zeros_like(bl_neg) if il_rows is None \
+        else il_negative(*il_rows)
+    neg = verd == 0
+    return torch.stack([
+        (verd == 1).sum(), (neg & bl_neg).sum(),
+        (neg & ~bl_neg & il_neg).sum(), (neg & ~bl_neg & ~il_neg).sum(),
+    ]).to(torch.int32)
+
+
+def il_violation_plane(il, v: torch.Tensor) -> torch.Tensor:
+    """(n_cap, Q) bool: vertex x violates interval containment against v_q."""
+    il_in, il_out = il
+    return ((il_out[:, None, :] > rows(il_out, v)[None, :, :]).any(-1)
+            | (rows(il_in, v)[None, :, :] > il_in[:, None, :]).any(-1))
+
+
+def _admit_plane(p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
+                 n_cap: int, dl_on: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """(n_cap, Qc) bool: vertices x admissible in query q's BFS.
+
+    admit = BL_in(x) ⊆ BL_in(v_q) ∧ BL_out(v_q) ⊆ BL_out(x)
+            ∧ ¬(DL_out(u_q) ∩ DL_in(x) ≠ ∅)
+    ``dl_on`` (Qc,) gates the DL term per lane (off for epoch-stale or
+    deletion-stale lanes)."""
+    c1 = bitset.subset(p.bl_in[:, None, :], rows(p.bl_in, v)[None, :, :])
+    c2 = bitset.subset(rows(p.bl_out, v)[None, :, :], p.bl_out[:, None, :])
+    d = bitset.intersect_any(rows(p.dl_out, u)[None, :, :],
+                             p.dl_in[:, None, :])
+    if dl_on is not None:
+        d = d & dl_on[None, :]
+    return c1 & c2 & ~d
+
+
+def pruned_bfs(g: Graph, p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
+               admit: torch.Tensor | None = None,
+               m_cut: torch.Tensor | None = None,
+               dl_clean: bool | None = None, *, n_cap: int,
+               max_iters: int = 256, frontier_dtype: str = "int8"
+               ) -> torch.Tensor:
+    """(Qc,) bool: resolve unknown queries by label-pruned BFS lanes.
+
+    ``admit`` is a precomputed (n_cap, Qc) admit plane of any dtype (the
+    bfs_prune kernel's int8 plane), else the torch plane is built here.
+    ``m_cut`` (Qc,) int32 is a per-lane edge-count cutoff: lane q traverses
+    only edges with append index < m_cut[q], i.e. the edge set of its
+    snapshot.  Stale lanes (m_cut < g.m) drop the DL prune.  ``dl_clean``
+    False (labels carry un-rebuilt deletions) drops it for every lane.
+
+    The loop tests the frontier on the host once per round; only edges
+    whose source row is on the frontier take part.
+    """
+    ftype = FRONTIER_DTYPES[frontier_dtype]
+    dev = u.device
+    qc = u.shape[0]
+    live = edge_mask(g)
+    clean = True if dl_clean is None else bool(dl_clean)
+    if m_cut is None:
+        dl_on = None if dl_clean is None else \
+            torch.full((qc,), clean, dtype=torch.bool, device=dev)
+    else:
+        dl_on = (m_cut >= g.m) & clean
+    if admit is None:
+        admit = _admit_plane(p, u, v, n_cap, dl_on)
+    elif admit.dtype != torch.bool:
+        admit = admit > 0
+    ids = torch.arange(n_cap, device=dev)
+    frontier = ids[:, None] == u[None, :].long()        # (n_cap, Qc)
+    visited = frontier.clone()
+    hit = torch.zeros(qc, dtype=torch.bool, device=dev)
+    lanes = torch.arange(qc, device=dev)
+    v_safe = v.clamp(0, n_cap - 1).long()
+    src = g.src.clamp(0, n_cap - 1).long()
+    dst = g.dst.long()
+    live = live & (g.dst >= 0) & (g.dst < n_cap)
+    eids = torch.arange(g.m_cap, device=dev)
+    it = 0
+    while it < max_iters and bool(frontier.any() & ~hit.all()):
+        eidx = torch.nonzero(frontier.any(1)[src] & live).squeeze(1)
+        contrib = frontier[src[eidx]]
+        if m_cut is not None:
+            contrib &= eids[eidx][:, None] < m_cut[None, :]
+        nxt = torch.zeros((n_cap, qc), dtype=ftype, device=dev)
+        nxt.index_reduce_(0, dst[eidx], contrib.to(ftype), "amax",
+                          include_self=True)
+        nxt = (nxt > 0) & admit & ~visited & ~hit[None, :]
+        hit |= nxt[v_safe, lanes]
+        visited |= nxt
+        frontier = nxt
+        it += 1
+    return hit
+
+
+def query(g: Graph, p: PackedLabels, u, v, *, n_cap: int,
+          bfs_chunk: int = 64, max_iters: int = 256,
+          return_stats: bool = False, dirty: bool = False):
+    """Full Alg 2 over a query batch: the host-side reference driver.
+
+    Verdicts go to the host, unknowns are sliced with numpy and resolved
+    one padded BFS chunk at a time.  Kept as the differential oracle for
+    ``repro_torch.serve.engine.QueryEngine``.  ``dirty=True`` keeps only
+    self-positives and BL negatives from labels and drops the DL prune."""
+    dev = p.dl_in.device
+    u_np = np.asarray(u, np.int32).ravel()
+    v_np = np.asarray(v, np.int32).ravel()
+    uu_all = torch.from_numpy(u_np).to(dev)
+    vv_all = torch.from_numpy(v_np).to(dev)
+    if dirty:
+        verdicts = cut_verdicts(p, uu_all, vv_all, 1, 0, False)
+    else:
+        verdicts = label_verdicts(p, uu_all, vv_all)
+    verdicts = verdicts.cpu().numpy()
+    answers = verdicts == 1
+    unknown = np.flatnonzero(verdicts == -1)
+    dl_clean = None if not dirty else False
+    for lo in range(0, unknown.size, bfs_chunk):
+        idx = unknown[lo:lo + bfs_chunk]
+        pad = bfs_chunk - idx.size
+        uu = torch.from_numpy(np.pad(u_np[idx], (0, pad))).to(dev)
+        vv = torch.from_numpy(np.pad(v_np[idx], (0, pad))).to(dev)
+        hit = pruned_bfs(g, p, uu, vv, dl_clean=dl_clean, n_cap=n_cap,
+                         max_iters=max_iters).cpu().numpy()
+        answers[idx] = hit[:idx.size]
+    if return_stats:
+        rho = 1.0 - unknown.size / max(1, verdicts.size)
+        return answers, {"rho": rho, "n_bfs": int(unknown.size)}
+    return answers

@@ -1,0 +1,114 @@
+"""Build and load the CUDA sources under ``csrc/`` at first use.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
+plain ``extern "C"`` interface, written to
+``build/repro_torch_kernels/<hash of the source>/lib<name>.so`` at the root
+of the checkout, and is loaded with ``ctypes``.  Nothing is built when a
+module is imported: the CPU never needs the libraries.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+#: argument types of each library's entry point, set once at load: device
+#: pointers and the stream are ``c_void_p``, sizes and totals ``c_int``.
+SIGNATURES = {
+    "dbl_query": ("dbl_query_verdicts",
+                  [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
+                   _P, _P, _I, _P, _I, _P]),
+    "bfs_prune": ("bfs_admit_plane",
+                  [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
+                   _P, _P]),
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit on the machine that has the card")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
+
+
+def _start(name: str):
+    """Start one nvcc for ``name`` unless its library exists.  Returns
+    (process, temp output, final path) or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)   # atomic: a concurrent build sees all or none
+
+
+def build(names) -> None:
+    """Compile the named sources, one ``nvcc`` each, all started together."""
+    names = list(names)
+    started = [_start(n) for n in names]
+    for n, s in zip(names, started):
+        _finish(n, s)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        entry, argtypes = SIGNATURES[name]
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(
+            f"{what} failed to launch: cuda error {err} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """Device pointer of a tensor, or NULL for None."""
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())

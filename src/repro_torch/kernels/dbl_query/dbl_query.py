@@ -1,0 +1,117 @@
+"""Fused DBL label verdict: the CUDA kernel ``csrc/dbl_query.cu`` and its
+plain PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/dbl_query/dbl_query.py``
+``dbl_query_verdicts`` (body ``_make_kernel``, line 35).  The kernel takes
+the four packed planes (n_cap, W) int32 and the query ids, gathers each
+lane's eight rows itself (one thread per lane) and writes one verdict per
+lane: +1 reachable, 0 unreachable, -1 unknown.  It is bound by bytes (ids,
+eight gathered rows and the verdict per lane), so at a serving batch its
+time is launch latency; see the source for the design.
+
+``dbl_query_verdicts`` launches the kernel for CUDA tensors and takes
+``verdicts_plain`` for CPU tensors.  ``dbl_query_verdicts.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import query as Q
+from repro_torch.kernels import _build
+
+
+def verdicts_plain(dl_in, dl_out, bl_in, bl_out, u, v,
+                   m_cut=None, m_total=None, d_cut=None, d_total=None,
+                   il_in=None, il_out=None, out_dtype=torch.int32
+                   ) -> torch.Tensor:
+    """The kernel's function in PyTorch ops: the core algebra
+    ``core.query.cut_verdicts_rows`` over clamped row gathers (twin of the
+    reference's ``ref.py::verdict_ref``, with the interval planes folded
+    in).  ``same`` compares the raw ids."""
+    p = Q.PackedLabels(dl_in, dl_out, bl_in, bl_out)
+    il = None if il_in is None else (il_in, il_out)
+    d_fresh = True if d_cut is None else d_cut >= d_total
+    verd = Q.cut_verdicts_rows(
+        Q.gather_rows(p, u, v), u, v, 1 if m_cut is None else m_cut,
+        0 if m_total is None else m_total, d_fresh,
+        il_rows=Q.gather_il_rows(il, u, v))
+    return verd.to(out_dtype)
+
+
+def _check(name, t, device, shape=None):
+    if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                         f"{device}, got {t.dtype} on {t.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+
+
+def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
+                       m_cut=None, m_total=None, d_cut=None, d_total=None,
+                       il_in=None, il_out=None, *, out_dtype=torch.int32
+                       ) -> torch.Tensor:
+    """(Q,) ``out_dtype`` (int8 or int32) verdicts.
+
+    Planes (n_cap, W) int32 row-major; ``u``/``v`` (Q,) int32.  Optional
+    ``m_cut`` (Q,) int32 with ``m_total`` int: label positives on lanes
+    with ``m_cut < m_total`` degrade to unknown.  Optional ``d_cut`` (Q,)
+    int32 with ``d_total`` int (needs the m-cut pair): lanes with
+    ``d_cut < d_total`` keep only self-positives and BL negatives.
+    Optional ``il_in``/``il_out`` (n_cap, 2*dim) int32 interval planes:
+    containment violations join the negatives on d-fresh lanes.
+    """
+    if (m_cut is None) != (m_total is None) or \
+            (d_cut is None) != (d_total is None):
+        raise ValueError("pass each cutoff with its total")
+    if d_cut is not None and m_cut is None:
+        raise ValueError("the tombstone cutoff needs the edge-count cutoff")
+    if (il_in is None) != (il_out is None):
+        raise ValueError("pass il_in and il_out together")
+    if out_dtype not in (torch.int8, torch.int32):
+        raise ValueError(f"out_dtype must be int8 or int32, got {out_dtype}")
+    if u.device.type == "cpu":
+        return verdicts_plain(dl_in, dl_out, bl_in, bl_out, u, v, m_cut,
+                              m_total, d_cut, d_total, il_in, il_out,
+                              out_dtype)
+    if u.device.type != "cuda":
+        raise ValueError(f"no kernel for device {u.device}")
+    dev = u.device
+    n_cap, wd = dl_in.shape
+    wb = bl_in.shape[1]
+    q = u.shape[0]
+    _check("dl_in", dl_in, dev)
+    _check("dl_out", dl_out, dev, (n_cap, wd))
+    _check("bl_in", bl_in, dev, (n_cap, wb))
+    _check("bl_out", bl_out, dev, (n_cap, wb))
+    _check("u", u, dev, (q,))
+    _check("v", v, dev, (q,))
+    for name, t in (("m_cut", m_cut), ("d_cut", d_cut)):
+        if t is not None:
+            _check(name, t, dev, (q,))
+    wi = 0
+    if il_in is not None:
+        wi = il_in.shape[1]
+        _check("il_in", il_in, dev, (n_cap, wi))
+        _check("il_out", il_out, dev, (n_cap, wi))
+    out = torch.empty(q, dtype=out_dtype, device=dev)
+    if q == 0:
+        return out
+    lib = _build.load("dbl_query")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        err = lib.dbl_query_verdicts(
+            p(dl_in), p(dl_out), wd, p(bl_in), p(bl_out), wb, n_cap, p(u),
+            p(v), q, p(m_cut), int(m_total or 0), p(d_cut),
+            int(d_total or 0), p(il_in), p(il_out), wi, p(out),
+            int(out_dtype == torch.int8), stream)
+    _build.check(lib, err, "verdicts_kernel")
+    dbl_query_verdicts.launches += 1
+    return out
+
+
+dbl_query_verdicts.launches = 0

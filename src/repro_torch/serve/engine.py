@@ -1,0 +1,585 @@
+"""Batched query engine: Alg 2 as a serving product.
+
+Most queries resolve from DL/BL labels alone; only the residue needs a
+pruned BFS.  The engine keeps that pipeline on the device:
+
+- **backend chosen once** from the device: ``"cuda"`` runs the
+  hand-written verdict kernel (and, with ``bfs_kernel=True``, the admit
+  plane kernel); ``"torch"`` runs the torch-op path on the CPU.  Asking for
+  ``"torch"`` on a CUDA device raises: the card always serves through the
+  kernels;
+- **one label phase per batch**: verdicts, per-family attribution counts
+  and an O(Q) cumsum/scatter compaction of the unknown lanes; the only
+  host traffic a batch owes is one int32 (the unknown count), read once;
+- **snapshot epochs and coalescing**: ``submit()`` tags a batch with the
+  current epoch and edge count, ``insert()`` bumps the epoch without
+  flushing, and ``flush()`` pools the residues of batches from different
+  epochs into one chunked BFS against the newest graph.  Insert-only
+  updates are monotone, so a per-lane edge-count cutoff keeps
+  ``"as-of-submit"`` answers exact; ``"latest"`` lifts the cutoff;
+- **adaptive flushing**: ``flush_policy="deadline"`` resolves once the
+  oldest submit is older than ``flush_deadline_ms``; ``"watermark"`` once
+  the pooled residue reaches ``flush_watermark`` lanes.
+
+This slice serves the replicated layout with bool planes.  The query-axis
+mesh, vertex sharding, streamed kernels, packed planes, deletions,
+rebuilds and the AOT cache raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import functools
+import time
+import warnings
+import weakref
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core import query as Q
+from repro_torch.core import update as U
+from repro_torch.core.dbl import (DBLIndex, LabelSaturationWarning,
+                                  _saturation_message, not_ported)
+from repro_torch.device import resolve_device
+from repro_torch.kernels.bfs_prune.ops import admit_plane
+from repro_torch.kernels.dbl_query.ops import verdicts_device
+
+#: supported consistency modes (``"latest-snapshot"`` is an alias)
+CONSISTENCY_MODES = ("as-of-submit", "latest")
+
+#: engine-initiated flush policies (``None`` = flush only when asked)
+FLUSH_POLICIES = (None, "deadline", "watermark")
+
+
+def select_backend(backend: str, device: torch.device) -> str:
+    """Resolve ``"auto"``: the CUDA kernels on a CUDA device, torch ops on
+    the CPU.  The torch path is refused on CUDA and the kernels on CPU."""
+    want = "cuda" if device.type == "cuda" else "torch"
+    if backend == "auto":
+        return want
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend != want:
+        raise ValueError(f"backend {backend!r} does not run on {device}; "
+                         f"use backend='auto' or {want!r}")
+    return backend
+
+
+def select_consistency(mode: str) -> str:
+    if mode == "latest-snapshot":
+        return "latest"
+    if mode not in CONSISTENCY_MODES:
+        raise ValueError(f"unknown consistency mode {mode!r}; "
+                         f"expected one of {CONSISTENCY_MODES}")
+    return mode
+
+
+@dataclass
+class EngineStats:
+    queries: int = 0
+    label_answered: int = 0
+    bfs_answered: int = 0
+    batches: int = 0
+    inserts: int = 0
+    bfs_dispatches: int = 0
+    flushes: int = 0
+    policy_flushes: int = 0   # flushes initiated by the adaptive policy
+    stale_lanes: int = 0      # residue lanes resolved across an epoch gap
+    saturation_events: int = 0  # inserts whose label fixpoint hit max_iters
+    #: per-family attribution over every resolved lane: "dl" label
+    #: positives (incl. self-queries), "bl"/"il" negatives charged to BL /
+    #: interval containment, "thm" the theorem-1/2 negatives, "bfs" the
+    #: residue lanes; the values sum to ``queries``.
+    prune_hits: dict = field(default_factory=lambda: {
+        "dl": 0, "bl": 0, "il": 0, "thm": 0, "bfs": 0})
+
+    def as_dict(self) -> dict:
+        rho = self.label_answered / max(self.queries, 1)
+        return {"queries": self.queries, "rho": rho,
+                "batches": self.batches, "inserts": self.inserts,
+                "bfs_dispatches": self.bfs_dispatches,
+                "flushes": self.flushes,
+                "policy_flushes": self.policy_flushes,
+                "stale_lanes": self.stale_lanes,
+                "saturation_events": self.saturation_events,
+                "prune_hits": dict(self.prune_hits)}
+
+
+class _Pending:
+    """Handle for a submitted batch: label phase done, BFS deferred.
+
+    ``lineage``/``epoch``/``m_at_submit`` tag the snapshot the batch
+    observed; engine-bound pendings resolve against the engine's newest
+    index with a per-lane edge-count cutoff."""
+
+    __slots__ = ("engine", "index", "q", "answers", "order",
+                 "u_c", "v_c", "n_unknown", "counts",
+                 "lineage", "epoch", "m_at_submit", "t_submit",
+                 "_result", "_nu", "__weakref__")
+
+    def __init__(self, engine, index, q, answers, order, u_c, v_c, n_unknown,
+                 counts=None, lineage=None, epoch=None, m_at_submit=None,
+                 t_submit=None):
+        self.engine = engine
+        self.index = index
+        self.q = q
+        self.answers = answers
+        self.order = order
+        self.u_c = u_c
+        self.v_c = v_c
+        self.n_unknown = n_unknown
+        self.counts = counts      # (4,) [dl+, bl-, il-, thm-] on the device
+        self.lineage = lineage
+        self.epoch = epoch
+        self.m_at_submit = m_at_submit
+        self.t_submit = t_submit
+        self._result = None
+        self._nu = None
+
+    @property
+    def nu(self) -> int:
+        """Unknown-lane count, read from the device once per batch."""
+        if self._nu is None:
+            self._nu = min(int(self.n_unknown), self.q)
+        return self._nu
+
+    def resolve(self) -> np.ndarray:
+        if self._result is None:
+            self._result = self.engine._finish(self)
+        return self._result
+
+
+class QueryEngine:
+    """Stateless core (``run``) plus optional bound-index serving state
+    (``query``/``insert`` mutate the bound index; ``submit``/``flush`` form
+    the pipeline that rides across inserts)."""
+
+    def __init__(self, index: DBLIndex | None = None, *,
+                 bfs_chunk: int = 256, max_iters: int = 256,
+                 backend: str = "auto", q_block: int = 512,
+                 mesh=None, vertex_mesh=None, bfs_kernel: bool = False,
+                 streaming: bool = False, donate: str | bool = "auto",
+                 consistency: str = "as-of-submit",
+                 frontier_dtype: str = "int8", out_dtype: str = "int8",
+                 plane_repr: str = "bool",
+                 flush_policy: str | None = None,
+                 flush_deadline_ms: float = 25.0,
+                 flush_watermark: int = 256, device=None):
+        if bfs_chunk <= 0 or q_block <= 0:
+            raise ValueError("bfs_chunk and q_block must be positive")
+        if mesh is not None:
+            raise not_ported("the query-axis mesh", "queue 1, item 14")
+        if vertex_mesh is not None:
+            raise not_ported("the vertex-sharded layout", "queue 1, item 14")
+        if streaming:
+            raise not_ported("streaming=True (the streamed kernels)",
+                             "queue 2, kernels 3-4")
+        if plane_repr != "bool":
+            raise not_ported(f"plane_repr={plane_repr!r}", "queue 1, item 13")
+        if frontier_dtype == "packed":
+            raise not_ported("frontier_dtype='packed'", "queue 1, item 13")
+        if frontier_dtype not in Q.FRONTIER_DTYPES:
+            raise ValueError(f"unknown frontier dtype {frontier_dtype!r}; "
+                             f"expected one of {list(Q.FRONTIER_DTYPES)}")
+        if out_dtype not in ("int8", "int32"):
+            raise ValueError(f"unknown verdict out dtype {out_dtype!r}; "
+                             "expected 'int8' or 'int32'")
+        if flush_policy not in FLUSH_POLICIES:
+            raise ValueError(f"unknown flush policy {flush_policy!r}; "
+                             f"expected one of {FLUSH_POLICIES}")
+        if flush_deadline_ms <= 0 or flush_watermark <= 0:
+            raise ValueError("flush_deadline_ms and flush_watermark must "
+                             "be positive")
+        self.device = index.device if index is not None \
+            else resolve_device(device)
+        self.bfs_chunk = int(bfs_chunk)
+        self.max_iters = int(max_iters)
+        self._backend_request = backend
+        self.backend = select_backend(backend, self.device)
+        # kept for the reference's signature; the kernels mask their ragged
+        # tail, so nothing pads to it
+        self.q_block = int(q_block)
+        self.bfs_kernel = bool(bfs_kernel)
+        self.consistency = select_consistency(consistency)
+        self.frontier_dtype = frontier_dtype
+        self.out_dtype = out_dtype
+        self._out_torch = torch.int8 if out_dtype == "int8" else torch.int32
+        self.flush_policy = flush_policy
+        self.flush_deadline_ms = float(flush_deadline_ms)
+        self.flush_watermark = int(flush_watermark)
+        self._clock = time.monotonic     # monkeypatchable in policy tests
+        if donate == "auto":
+            donate = self.device.type == "cuda"
+        # donate: inserts rewrite the bound index's label planes in place
+        self.donate = bool(donate)
+        self.stats = EngineStats()
+        # lineage tells re-binds apart from in-place epoch bumps
+        self._lineage = 0
+        self._index: DBLIndex | None = None
+        self.epoch = 0
+        self._m_now = 0
+        self._inflight: list = []
+        self._sat_flags: list = []
+        if index is not None:
+            self.index = index
+
+    # ------------------------------------------------------------ binding
+    @property
+    def index(self) -> DBLIndex | None:
+        return self._index
+
+    @index.setter
+    def index(self, idx: DBLIndex | None):
+        """(Re-)bind a serving index: starts a new snapshot lineage.
+        In-flight submits of the outgoing lineage resolve first.  The
+        engine follows the index's device."""
+        if self._index is not None:
+            self._drain_inflight()
+        self._lineage += 1
+        self._index = idx
+        if idx is not None:
+            if idx.device != self.device:
+                self.device = idx.device
+                self.backend = select_backend(self._backend_request,
+                                              self.device)
+            self.epoch = int(idx.epoch)
+            self._m_now = int(idx.graph.m)
+        else:
+            self.epoch = 0
+            self._m_now = 0
+
+    def _drain_inflight(self):
+        stale = self._unresolved_inflight()
+        if stale:
+            self.flush(stale)
+        self._inflight = []
+
+    def _check_device(self, index: DBLIndex):
+        if index.device != self.device:
+            raise ValueError(f"index lives on {index.device}, engine on "
+                             f"{self.device}")
+
+    # ------------------------------------------------------------ phases
+    def _verdicts(self, p: Q.PackedLabels, u, v, m_cut, m_total, d_stale):
+        """Cutoff verdicts: the kernel on CUDA, its plain version on the
+        CPU.  A tombstone cutoff is passed only when the labels are stale."""
+        return verdicts_device(p, u, v, m_cut, m_total,
+                               *self._d_cut(u, d_stale),
+                               out_dtype=self._out_torch)
+
+    @staticmethod
+    def _d_cut(u, d_stale: bool):
+        """(d_cut, d_total) marking every lane deletion-stale, or no cutoff
+        for clean labels."""
+        if not d_stale:
+            return None, None
+        return torch.zeros(u.shape, dtype=torch.int32, device=u.device), 1
+
+    def label_phase(self, p: Q.PackedLabels, u: torch.Tensor,
+                    v: torch.Tensor, d_stale: bool):
+        """Verdicts, attribution counts and the compaction of unknown
+        lanes.  Compaction is an O(Q) cumsum/scatter, not a sort: unknown
+        lanes keep submission order at slots [0, nu), known lanes fill the
+        tail, and endpoints are scattered straight to their slots."""
+        fresh = torch.full(u.shape, Q.FRESH_CUT, dtype=torch.int32,
+                           device=u.device)
+        verd = self._verdicts(p, u, v, fresh, 0, d_stale)
+        counts = Q.verdict_counts(verd, Q.gather_rows(p, u, v))
+        unknown = verd == -1
+        n_unknown = unknown.sum().to(torch.int32)
+        rank_u = torch.cumsum(unknown.to(torch.int32), 0)
+        rank_k = torch.cumsum((~unknown).to(torch.int32), 0)
+        pos = torch.where(unknown, rank_u - 1, n_unknown + rank_k - 1).long()
+        q = u.shape[0]
+        lanes = torch.arange(q, dtype=torch.int32, device=u.device)
+        order = torch.zeros(q, dtype=torch.int32, device=u.device)
+        order[pos] = lanes
+        u_c = torch.zeros_like(order)
+        u_c[pos] = u
+        v_c = torch.zeros_like(order)
+        v_c[pos] = v
+        return verd == 1, order, u_c, v_c, n_unknown, counts
+
+    def coalesced_phase(self, index: DBLIndex, uu, vv, m_cut,
+                        d_stale: bool) -> torch.Tensor:
+        """One chunk of an epoch-coalesced residue: re-check the lanes
+        against the newest labels (verdict 0 → False, surviving +1 → True;
+        stale-lane positives were downgraded by the cutoff), then run the
+        cutoff BFS on the lanes still unknown.  Dead lanes (padding)
+        carry ``u = n_cap`` and never extend the BFS."""
+        g, p = index.graph, index.packed
+        n_cap = index.n_cap
+        live_lane = uu < n_cap
+        uu_safe = uu.clamp(max=n_cap - 1)
+        verd = self._verdicts(p, uu_safe, vv, m_cut, g.m, d_stale)
+        need = live_lane & (verd == -1)
+        uu2 = torch.where(need, uu, torch.full_like(uu, n_cap))
+        admit = None
+        if self.bfs_kernel:
+            admit = admit_plane(p, uu2.clamp(max=n_cap - 1), vv, m_cut, g.m,
+                                *self._d_cut(uu, d_stale),
+                                out_dtype=torch.int8,
+                                device=self.device.type)
+        hit = Q.pruned_bfs(g, p, uu2, vv, admit, m_cut, not d_stale,
+                           n_cap=n_cap, max_iters=self.max_iters,
+                           frontier_dtype=self.frontier_dtype)
+        return ((verd == 1) & live_lane) | hit
+
+    def insert_impl(self, idx: DBLIndex, ns, nd):
+        g2, a, b, c, d, iters, epoch2 = U.insert_and_update(
+            idx.graph, idx.dl_in, idx.dl_out, idx.bl_in, idx.bl_out, ns, nd,
+            self.epoch, n_cap=idx.n_cap, max_iters=self.max_iters,
+            inplace=self.donate)
+        sat = U.saturated(iters, self.max_iters)
+        return g2, a, b, c, d, Q.pack_labels(a, b, c, d), epoch2, sat
+
+    def _chunk_buckets(self):
+        sizes, c = [], 16
+        while c < self.bfs_chunk:
+            sizes.append(c)
+            c *= 2
+        sizes.append(self.bfs_chunk)
+        return sizes
+
+    def _bucket_for(self, nu: int) -> int:
+        for c in self._chunk_buckets():
+            if nu <= c:
+                return c
+        return self.bfs_chunk
+
+    # ------------------------------------------------------------ queries
+    def _pad_queries(self, u, v):
+        u = np.asarray(u, np.int32).ravel()
+        v = np.asarray(v, np.int32).ravel()
+        q = u.shape[0]
+        c = self.bfs_chunk
+        qp = max(c, -(-q // c) * c)
+        if qp != q:
+            # pad with self-queries on vertex 0: verdict +1, never unknown
+            u = np.pad(u, (0, qp - q))
+            v = np.pad(v, (0, qp - q))
+        return (torch.from_numpy(u).to(self.device),
+                torch.from_numpy(v).to(self.device), q)
+
+    def submit(self, index: DBLIndex, u, v) -> _Pending:
+        """Run the label phase now; the BFS is deferred to ``resolve()`` /
+        ``flush()``.  Submits against the bound index are tagged with the
+        current epoch and edge count and survive later ``insert()``s."""
+        self._check_device(index)
+        uj, vj, q = self._pad_queries(u, v)
+        answers, order, u_c, v_c, n_unknown, counts = self.label_phase(
+            index.packed, uj, vj, index.is_dirty)
+        if self._index is not None and index is self._index:
+            tag = dict(lineage=self._lineage, epoch=self.epoch,
+                       m_at_submit=self._m_now)
+        else:
+            tag = {}
+        pend = _Pending(self, index, q, answers, order, u_c, v_c, n_unknown,
+                        counts, t_submit=self._clock(), **tag)
+        if tag:
+            self._inflight = [r for r in self._inflight
+                              if r() is not None and r()._result is None]
+            self._inflight.append(weakref.ref(pend))
+            self.maybe_flush()
+        return pend
+
+    # ------------------------------------------------- adaptive flushing
+    def _unresolved_inflight(self) -> list:
+        return [p for p in (r() for r in self._inflight)
+                if p is not None and p._result is None
+                and p.lineage == self._lineage]
+
+    def flush_due(self) -> bool:
+        """Whether the adaptive policy wants the pipeline resolved now."""
+        if self.flush_policy is None:
+            return False
+        pending = self._unresolved_inflight()
+        if not pending:
+            return False
+        if self.flush_policy == "deadline":
+            oldest = min(p.t_submit for p in pending)
+            return (self._clock() - oldest) * 1e3 >= self.flush_deadline_ms
+        return sum(p.nu for p in pending) >= self.flush_watermark
+
+    def maybe_flush(self) -> bool:
+        """Run the adaptive flush policy once; True when a flush ran."""
+        if not self.flush_due():
+            return False
+        self.flush(self._unresolved_inflight())
+        self.stats.policy_flushes += 1
+        return True
+
+    def _current_lineage(self, p: _Pending) -> bool:
+        return (p.engine is self and p.lineage is not None
+                and p.lineage == self._lineage and self._index is not None)
+
+    def _finish(self, pend: _Pending) -> np.ndarray:
+        results: dict[int, np.ndarray] = {}
+        self._finish_group([(0, pend)], results, self.consistency,
+                           self._current_lineage(pend))
+        return results[0]
+
+    def flush(self, pendings, *, consistency: str | None = None) -> list:
+        """Resolve submitted batches together, pooling their BFS residues
+        across snapshot epochs into one chunked dispatch sequence against
+        the newest index.  Per-lane edge-count cutoffs keep as-of-submit
+        answers exact; ``consistency="latest"`` lifts them."""
+        mode = select_consistency(consistency or self.consistency)
+        results: dict[int, np.ndarray] = {}
+        groups: dict[tuple, list] = {}
+        for i, p in enumerate(pendings):
+            if p._result is not None:
+                results[i] = p._result
+                continue
+            if self._current_lineage(p):
+                key = ("lineage", self._lineage)
+            else:
+                key = ("index", id(p.index.packed.dl_in))
+            groups.setdefault(key, []).append((i, p))
+        for key, grp in groups.items():
+            self._finish_group(grp, results, mode, key[0] == "lineage")
+        self.stats.flushes += 1
+        if self._sat_flags:
+            self.check_saturation()
+        return [results[i] for i in range(len(pendings))]
+
+    def _finish_group(self, grp, results, mode, engine_group):
+        infos = [(i, p, p.nu) for i, p in grp]
+        total = sum(nu for _, _, nu in infos)
+        hits_all = np.zeros(0, np.bool_)
+        if total:
+            index = self._index if engine_group else grp[0][1].index
+            n_cap = index.n_cap
+            uu = np.concatenate([p.u_c[:nu].cpu().numpy()
+                                 for _, p, nu in infos if nu])
+            vv = np.concatenate([p.v_c[:nu].cpu().numpy()
+                                 for _, p, nu in infos if nu])
+            if engine_group and mode == "as-of-submit":
+                cuts = np.concatenate([
+                    np.full(nu, p.m_at_submit, np.int32)
+                    for _, p, nu in infos if nu])
+                self.stats.stale_lanes += int((cuts < self._m_now).sum())
+            else:
+                # latest consistency / foreign snapshot: every lane sees
+                # the group's full edge set and keeps the DL prune
+                cuts = np.full(total, Q.FRESH_CUT, np.int32)
+            chunk = (self.bfs_chunk if total > self.bfs_chunk
+                     else self._bucket_for(total))
+            pad = -total % chunk
+            if pad:
+                uu = np.concatenate([uu, np.full(pad, n_cap, np.int32)])
+                vv = np.concatenate([vv, np.zeros(pad, np.int32)])
+                cuts = np.concatenate([cuts,
+                                       np.full(pad, Q.FRESH_CUT, np.int32)])
+            dev = self.device
+            hit_parts = []
+            for start in range(0, total, chunk):
+                sl = slice(start, start + chunk)
+                hit_parts.append(self.coalesced_phase(
+                    index, torch.from_numpy(uu[sl]).to(dev),
+                    torch.from_numpy(vv[sl]).to(dev),
+                    torch.from_numpy(cuts[sl]).to(dev), index.is_dirty))
+                self.stats.bfs_dispatches += 1
+            hits_all = torch.cat(hit_parts).cpu().numpy()[:total]
+        off = 0
+        for i, p, nu in infos:
+            ans = p.answers.cpu().numpy().copy()
+            if nu:
+                order = p.order[:nu].cpu().numpy()
+                ans[order] = hits_all[off:off + nu]
+                off += nu
+            out = ans[:p.q]
+            p._result = out
+            results[i] = out
+            self.stats.queries += p.q
+            self.stats.batches += 1
+            self.stats.bfs_answered += nu
+            self.stats.label_answered += p.q - nu
+            if p.counts is not None:
+                # padding lanes are vertex-0 self-queries, charged to "dl"
+                # by the label phase; back them out
+                dl, bl, il, thm = (int(x) for x in p.counts.cpu())
+                pad = int(p.answers.shape[0]) - p.q
+                ph = self.stats.prune_hits
+                ph["dl"] += dl - pad
+                ph["bl"] += bl
+                ph["il"] += il
+                ph["thm"] += thm
+                ph["bfs"] += nu
+
+    def run(self, index: DBLIndex, u, v, *, return_stats: bool = False):
+        """Full Alg 2 on ``index`` for one batch; returns (Q,) np.bool_."""
+        q = int(np.asarray(u).size)
+        if q == 0:
+            ans = np.zeros(0, np.bool_)
+            return (ans, {"rho": 1.0, "n_bfs": 0}) if return_stats else ans
+        pend = self.submit(index, u, v)
+        ans = pend.resolve()
+        if return_stats:
+            nu = pend.nu
+            return ans, {"rho": 1.0 - nu / q, "n_bfs": nu}
+        return ans
+
+    # ------------------------------------------------------ bound serving
+    def query(self, u, v, *, return_stats: bool = False):
+        if self._index is None:
+            raise ValueError("engine has no bound index; use run()")
+        return self.run(self._index, u, v, return_stats=return_stats)
+
+    def insert(self, new_src, new_dst) -> DBLIndex:
+        """Insert edges into the bound index (Alg 3), bumping the snapshot
+        epoch.  Outstanding submits are not flushed: they resolve later
+        against the newest snapshot with their cutoffs.  With ``donate``
+        the previous snapshot's label planes are rewritten in place, so
+        callers must not keep using the old index."""
+        if self._index is None:
+            raise ValueError("engine has no bound index; use run()")
+        idx = self._index
+        ns = torch.from_numpy(np.asarray(new_src, np.int32).ravel()).to(
+            self.device)
+        nd = torch.from_numpy(np.asarray(new_dst, np.int32).ravel()).to(
+            self.device)
+        g2, a, b, c, d, packed, epoch2, sat = self.insert_impl(idx, ns, nd)
+        # direct field write: an insert advances the epoch within the
+        # current lineage (the property setter would start a new one)
+        self._index = DBLIndex(
+            g2, idx.landmarks, a, b, c, d, packed, idx.bl_sources,
+            idx.bl_sinks, epoch=epoch2, label_del_epoch=idx.label_del_epoch,
+            saturated=idx.saturated or sat)
+        self._sat_flags.append(sat)   # surfaced at flush boundaries
+        self.epoch += 1
+        self._m_now += int(ns.numel())
+        self.stats.inserts += int(ns.numel())
+        return self._index
+
+    def delete(self, del_src, del_dst) -> DBLIndex:
+        raise not_ported("QueryEngine.delete", "queue 1, item 11")
+
+    def rebuild(self, **build_kw) -> DBLIndex:
+        raise not_ported("QueryEngine.rebuild", "queue 1, item 11")
+
+    def aot_warmup(self, index, cache_dir, **kw):
+        raise not_ported("the AOT executable cache", "queue 1, item 15")
+
+    def check_saturation(self, *, warn: bool = True) -> int:
+        """Drain the deferred per-insert saturation flags and return how
+        many insert batches saturated; optionally warns.  Runs at every
+        ``flush()``."""
+        flags, self._sat_flags = self._sat_flags, []
+        n = sum(bool(f) for f in flags)
+        if n:
+            self.stats.saturation_events += n
+            if warn:
+                warnings.warn(_saturation_message(self.max_iters),
+                              LabelSaturationWarning, stacklevel=2)
+        return n
+
+
+@functools.lru_cache(maxsize=64)
+def engine_for(*, bfs_chunk: int, max_iters: int, backend: str = "auto",
+               q_block: int = 512, device: str = "cuda") -> QueryEngine:
+    """Memoized stateless engines, so ``DBLIndex.query`` reuses one engine
+    per configuration and device (indexes are per-call arguments)."""
+    return QueryEngine(None, bfs_chunk=bfs_chunk, max_iters=max_iters,
+                       backend=backend, q_block=q_block, donate=False,
+                       device=device)

@@ -1,0 +1,89 @@
+"""The port stands alone: no file of ``repro_torch`` or ``chip_smoke.py``
+imports JAX or the JAX package, the package imports with both blocked,
+and entry points default to CUDA without moving to the CPU silently."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+def test_package_imports_with_jax_and_reference_blocked():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__,\n"
+        "                                'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('OK')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "OK"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.kernels.bfs_prune.ops import admit_plane
+    from repro_torch.kernels.dbl_query.ops import query_verdicts
+    from repro_torch.serve.engine import QueryEngine
+    from repro_torch.serve.reach_server import main
+    src = np.array([0, 1], np.int32)
+    dst = np.array([1, 2], np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_graph(src, dst, 3)
+    g = make_graph(src, dst, 3, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DBLIndex.build(g, n_cap=3, k=2, k_prime=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QueryEngine()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--n", "8", "--m", "16"])
+    idx = DBLIndex.build(g, n_cap=3, k=2, k_prime=2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        query_verdicts(idx.packed, [0], [2])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        admit_plane(idx.packed, [0], [2])
+    # the engine follows its index; the torch path is refused on CUDA
+    eng = QueryEngine(idx)
+    assert eng.device.type == "cpu" and eng.backend == "torch"
+    assert eng.query([0, 2], [2, 0]).tolist() == [True, False]
+    from repro_torch.serve.engine import select_backend
+    with pytest.raises(ValueError):
+        select_backend("torch", torch.device("cuda"))
+    with pytest.raises(ValueError):
+        select_backend("cuda", torch.device("cpu"))
