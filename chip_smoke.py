@@ -6,22 +6,35 @@
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. device: CUDA must be present; prints the card's name and power limit.
-2. build: compiles both CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, started together).
+2. build: compiles the four CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
+   together).
 3. parity: each kernel against its plain PyTorch version on the card over
    a sweep of ragged shapes, word counts, cutoffs, interval planes and
-   output types; bitwise equality is required.  Then each kernel's time,
-   its plain version's time and its least possible time (bound) at the
-   main path's shapes.
+   output types, and each streamed kernel against its grid twin as well;
+   bitwise equality is required.  Then each kernel's time, its plain
+   version's time and its least possible time (bound) at the main path's
+   shapes.
 4. main path: the LJ preset at full size (n = 60 000, m = 850 000) is
    built with ``DBLIndex.build(k=64, k_prime=64, max_iters=64)`` and served
    by a ``ReachabilityServer`` over ``QueryEngine(bfs_chunk=64,
    max_iters=64, bfs_kernel=True)``: 4 rounds of 20 000 queries and 100
    inserted edges, one round through submit -> insert -> flush.  Every
    BFS-residue lane and 64 random lanes per round are checked against a
-   host BFS over that round's snapshot.  Both kernels' launch counters
+   host BFS over that round's snapshot.  The grid kernels' launch counters
    must grow during this phase.
-5. the ``kernels`` summary line, then the ``ok`` line last.
+5. dynamic: a second LJ index at full size served fully dynamically by a
+   ``ReachabilityServer(rebuild_mode="auto", rebuild_dead_ratio=0.001)``
+   over ``QueryEngine(streaming=True, bfs_kernel=True)``: 4 rounds of
+   20 000 queries, 100 inserted edges and 500 deleted live edges (pairs
+   that hold one edge slot).  The lazy rebuild falls due after the second
+   round and runs at the third round's query.  Before it runs, the dirty
+   index is rebuilt both ways (delta and full must give the same planes)
+   and the device closure ``reach_mask`` is held against the host's
+   ``_host_reach``.  64 random
+   answers per round are checked against a host BFS over that round's
+   live edges.  The streamed kernels' launch counters must grow here.
+6. the ``kernels`` summary line, then the ``ok`` line last.
 """
 import json
 import subprocess
@@ -53,6 +66,10 @@ LABEL_Q = -(-QUERIES // BFS_CHUNK) * BFS_CHUNK
 #: the coalesced phase's chunk sizes: the engine's buckets up to bfs_chunk
 CHUNK_QS = (16, 32, 64)
 LJ_N = 60_000
+#: the dynamic phase: deleted live edges per round and the server's
+#: tombstone ratio (850 of the LJ preset's 850 000 edges)
+DELETES = 500
+DEAD_RATIO = 0.001
 
 
 def emit(phase, **kw):
@@ -120,19 +137,29 @@ def random_planes(rng, n, k, kp, dev):
 
 
 def parity_sweep(dev):
-    """Kernel against plain version on the card; returns the largest
-    absolute difference seen (0 when bitwise equal) and the case count."""
+    """Kernels against their plain versions on the card, and each streamed
+    kernel against its grid twin; returns the largest absolute difference
+    seen per kernel (0 when bitwise equal) and the case count."""
+    import warnings
+
     import torch
-    from repro_torch.kernels.bfs_prune.bfs_prune import (admit_plain,
-                                                         bfs_admit_plane)
-    from repro_torch.kernels.dbl_query.dbl_query import (dbl_query_verdicts,
-                                                         verdicts_plain)
+    from repro_torch.kernels.bfs_prune.bfs_prune import (
+        admit_plain, admit_streamed_plain, bfs_admit_plane,
+        bfs_admit_plane_streamed)
+    from repro_torch.kernels.dbl_query.dbl_query import (
+        dbl_query_verdicts, dbl_query_verdicts_streamed, freshness_rows,
+        verdicts_plain, verdicts_streamed_plain)
+    from repro_torch.kernels.dbl_query.ops import (StreamILFallbackWarning,
+                                                   verdicts_device)
+    from repro_torch.core.query import PackedLabels
     rng = np.random.default_rng(0)
     variants = [  # k, k', cutoffs, interval planes, verdict out dtype
         (64, 64, "none", False, torch.int8),
         (64, 64, "m", False, torch.int8),     # the main path's
+        (64, 64, "md", False, torch.int8),    # the dynamic phase's
         (40, 96, "m", False, torch.int32),
         (32, 64, "md", False, torch.int8),
+        (96, 40, "md", False, torch.int32),
         (40, 96, "md", True, torch.int32),
         (64, 64, "m", True, torch.int8),
         (96, 40, "none", True, torch.int32),
@@ -140,7 +167,9 @@ def parity_sweep(dev):
     shapes = [(1, 1), (37, 37), (513, 513), (37, LJ_N), (LJ_N, 1),
               (LJ_N, 37), (LJ_N, 513), (LJ_N, LABEL_Q),
               *((LJ_N, q) for q in CHUNK_QS)]
-    worst = {"verdicts_kernel": 0, "admit_kernel": 0}
+    names = ("verdicts_kernel", "admit_kernel", "streamed_verdicts_kernel",
+             "streamed_admit_kernel")
+    worst = dict.fromkeys(names, 0)
     cases = 0
 
     def ids(q, n):
@@ -148,8 +177,20 @@ def parity_sweep(dev):
         x[::7] = n             # dead lanes: clamped to the last row
         return torch.from_numpy(x).to(dev)
 
+    def hold(name, got, *wants, what=""):
+        nonlocal cases
+        torch.cuda.synchronize()
+        for want in wants:
+            err = int((got.long() - want.long()).abs().max()) \
+                if got.numel() else 0
+            worst[name] = max(worst[name], err)
+            if err or got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"{name} disagrees: {what}")
+        cases += 1
+
     for n, q in shapes:
         for k, kp, cut, il, out_dtype in variants:
+            what = f"n={n} q={q} k={k} k'={kp} cut={cut} il={il}"
             p = random_planes(rng, n, k, kp, dev)
             u, v = ids(q, n), ids(q, n)
             v[::5] = u[::5]
@@ -165,44 +206,63 @@ def parity_sweep(dev):
                 ilkw = {name: torch.from_numpy(rng.integers(
                     -50, 50, (n, 6)).astype(np.int32)).to(dev)
                     for name in ("il_in", "il_out")}
-            got = dbl_query_verdicts(*p, u, v, **cuts, **ilkw,
-                                     out_dtype=out_dtype)
-            want = verdicts_plain(*p, u, v, **cuts, **ilkw,
-                                  out_dtype=out_dtype)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            worst["verdicts_kernel"] = max(worst["verdicts_kernel"], err)
-            if err or got.dtype != out_dtype:
-                raise AssertionError(f"verdicts_kernel disagrees: n={n} "
-                                     f"q={q} k={k} k'={kp} cut={cut} il={il}")
-            cases += 1
+            grid = dbl_query_verdicts(*p, u, v, **cuts, **ilkw,
+                                      out_dtype=out_dtype)
+            hold("verdicts_kernel", grid, verdicts_plain(
+                *p, u, v, **cuts, **ilkw, out_dtype=out_dtype), what=what)
+            if il:
+                # the reference's rule: streaming with interval planes
+                # warns and takes the grid kernel
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    got = verdicts_device(
+                        PackedLabels(*p), u, v, **cuts,
+                        il=(ilkw["il_in"], ilkw["il_out"]),
+                        out_dtype=out_dtype, streaming=True)
+                if not any(issubclass(w.category, StreamILFallbackWarning)
+                           for w in caught):
+                    raise AssertionError("streaming + il did not warn")
+                hold("verdicts_kernel", got, grid, what="streaming+il")
+            else:
+                rows = freshness_rows(**cuts)
+                hold("streamed_verdicts_kernel",
+                     dbl_query_verdicts_streamed(*p, u, v, **cuts,
+                                                 out_dtype=out_dtype),
+                     verdicts_streamed_plain(*p, u, v, rows, out_dtype),
+                     grid, what=what)
             if q > 513:
                 continue
             args = (p.bl_in, p.bl_out, p.dl_in, p.dl_out, u, v)
-            got = bfs_admit_plane(*args, **cuts)
-            want = admit_plain(*args, **cuts)
-            torch.cuda.synchronize()
-            err = int((got.long() - want.long()).abs().max())
-            worst["admit_kernel"] = max(worst["admit_kernel"], err)
-            if err:
-                raise AssertionError(f"admit_kernel disagrees: n={n} q={q} "
-                                     f"k={k} k'={kp} cut={cut}")
-            cases += 1
+            grid = bfs_admit_plane(*args, **cuts)
+            hold("admit_kernel", grid, admit_plain(*args, **cuts), what=what)
+            rows = freshness_rows(**cuts)
+            fresh = None if rows is None else rows.all(0).to(torch.int32)
+            plain = admit_streamed_plain(*args, fresh)
+            # the default chunk and one that divides no n of the sweep
+            for nb in (None, 36):
+                hold("streamed_admit_kernel",
+                     bfs_admit_plane_streamed(*args, **cuts, n_block=nb),
+                     plain, grid, what=f"{what} n_block={nb}")
     return worst, cases
 
 
 def kernel_timings(dev):
-    """Kernel, plain and bound times at the main path's shapes over the
-    LJ preset's 60 000 vertices with k = k' = 64 (W = 2) and clean labels
-    (edge-count cutoff only): the label phase's padded verdict batch and
-    the coalesced phase's 64-lane admit plane.  Each kernel's output must
-    equal its plain version's, bitwise, on the timed inputs."""
+    """Kernel, plain and bound times at the main paths' shapes over the
+    LJ preset's 60 000 vertices with k = k' = 64 (W = 2): the label
+    phase's padded verdict batch and the coalesced phase's 64-lane admit
+    plane, the grid kernels with clean labels (edge-count cutoff only),
+    the streamed kernels with dirty labels (edge-count and tombstone
+    cutoffs, pre-combined into freshness rows as the streamed wrappers
+    do).  Each kernel's output must equal its plain version's, bitwise, on
+    the timed inputs."""
     import torch
     from repro_torch.core.query import FRESH_CUT
-    from repro_torch.kernels.bfs_prune.bfs_prune import (admit_plain,
-                                                         bfs_admit_plane)
-    from repro_torch.kernels.dbl_query.dbl_query import (dbl_query_verdicts,
-                                                         verdicts_plain)
+    from repro_torch.kernels.bfs_prune.bfs_prune import (
+        admit_plain, admit_streamed_plain, bfs_admit_plane,
+        streamed_admit_row)
+    from repro_torch.kernels.dbl_query.dbl_query import (
+        dbl_query_verdicts, freshness_rows, streamed_verdicts_rows,
+        verdicts_plain, verdicts_streamed_plain)
     rng = np.random.default_rng(1)
     n, w = LJ_N, 2
     p = random_planes(rng, n, 64, 64, dev)
@@ -245,6 +305,37 @@ def kernel_timings(dev):
         "admit_kernel", f"n_cap={n} W=2 Qc={q} int8 out, m_cut",
         lambda: bfs_admit_plane(*args, **cuts),
         lambda: admit_plain(*args, **cuts), nbytes, ops)
+
+    # the dynamic phase's dirty label phase: both freshness rows (all
+    # fresh by edge count, all stale by tombstone), as the engine passes
+    q = LABEL_Q
+    u, v = ids(q), ids(q)
+    rows2 = freshness_rows(
+        torch.full((q,), FRESH_CUT, dtype=torch.int32, device=dev), 0,
+        torch.zeros(q, dtype=torch.int32, device=dev), 1)
+    rows = int(torch.unique(torch.cat([u, v])).numel())
+    nbytes = rows * 4 * w * 4 + q * (4 + 4 + 2 * 4 + 1)
+    ops = q * (4 * w + 2 * w + 8)
+    out["streamed_verdicts_kernel"] = timed(
+        "streamed_verdicts_kernel",
+        f"n_cap={n} W=2 Q={q} int8 out, ncut=2",
+        lambda: streamed_verdicts_rows(*p, u, v, rows2,
+                                       out_dtype=torch.int8),
+        lambda: verdicts_streamed_plain(*p, u, v, rows2, torch.int8),
+        nbytes, ops)
+
+    # the dynamic phase's coalesced chunk on clean labels: the DL term on
+    # for every lane (one pre-combined freshness row of ones)
+    q = CHUNK_QS[-1]
+    u, v = ids(q), ids(q)
+    fresh = torch.ones(q, dtype=torch.int32, device=dev)
+    args = (p.bl_in, p.bl_out, p.dl_in, p.dl_out, u, v)
+    nbytes = n * 3 * w * 4 + q * (3 * w * 4 + 3 * 4) + n * q
+    ops = n * q * (2 * w + w + 2)
+    out["streamed_admit_kernel"] = timed(
+        "streamed_admit_kernel", f"n_cap={n} W=2 Qc={q} int8 out, fresh row",
+        lambda: streamed_admit_row(*args, fresh),
+        lambda: admit_streamed_plain(*args, fresh), nbytes, ops)
     return out
 
 
@@ -378,10 +469,191 @@ def main_path(dev, card):
     return launches
 
 
-def profile_round(srv, rng, n, card):
-    """One more served round (20 000 queries, then 100 inserts) under
-    ``torch.profiler``: device time by kernel and the device's busy share
-    of the round's wall time.  Runs after the launch counts were read."""
+def live_edges(g):
+    """(src, dst) numpy arrays of the graph's live edges."""
+    from repro_torch.core.graph import edge_mask
+    live = edge_mask(g)
+    return g.src[live].cpu().numpy(), g.dst[live].cpu().numpy()
+
+
+def dirty_checks(idx, card):
+    """On a dirty index: a delta and a full rebuild must give the same
+    planes, landmarks and leaf masks, and the device closure ``reach_mask``
+    (the delta plan's path on the card) must equal the host's
+    ``_host_reach`` on the same inputs, in both directions."""
+    import torch
+    from repro_torch.core import graph as G
+    from repro_torch.core import propagate as P
+    from repro_torch.core.dbl import _host_reach
+    n_cap = idx.n_cap
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    d_idx, d_info = idx.rebuild_info(mode="delta", max_iters=64,
+                                     check="raise")
+    torch.cuda.synchronize()
+    delta_s = time.perf_counter() - t
+    f_idx, f_info = idx.rebuild_info(mode="full", max_iters=64,
+                                     check="raise")
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t - delta_s
+    for f in ("dl_in", "dl_out", "bl_in", "bl_out", "landmarks",
+              "bl_sources", "bl_sinks"):
+        if not torch.equal(getattr(d_idx, f), getattr(f_idx, f)):
+            raise AssertionError(f"delta and full rebuilds differ in {f}")
+    g = idx.graph
+    old_live = G.edge_mask(g, idx.label_del_epoch)
+    deleted = G.deleted_since(g, idx.label_del_epoch)
+    closures = {}
+    for name, heads, reverse in (("fwd", g.dst, False), ("bwd", g.src, True)):
+        seeds = torch.zeros(n_cap, dtype=torch.bool, device=idx.device)
+        seeds[heads[deleted].long()] = True
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        on_card, iters = P.reach_mask(g.src, g.dst, old_live, seeds,
+                                      n_cap=n_cap, max_iters=n_cap,
+                                      reverse=reverse)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t) * 1e3
+        s, d = (g.dst, g.src) if reverse else (g.src, g.dst)
+        t = time.perf_counter()
+        on_host = _host_reach(s.cpu().numpy(), d.cpu().numpy(),
+                              old_live.cpu().numpy(), seeds.cpu().numpy())
+        host_ms = (time.perf_counter() - t) * 1e3
+        if not np.array_equal(on_card.cpu().numpy(), on_host):
+            raise AssertionError(f"reach_mask ({name}) differs from "
+                                 "_host_reach")
+        closures[name] = dict(vertices=int(on_host.sum()), iters=iters,
+                              reach_mask_ms=card_ms, host_reach_ms=host_ms)
+    emit("dirty_checks", card=card, dead_edges=int(G.dead_edge_count(g)),
+         delta_rebuild_ms=delta_s * 1e3, full_rebuild_ms=full_s * 1e3,
+         delta_info=d_info, full_info=f_info, delta_equals_full=True,
+         closures=closures)
+
+
+def dynamic_phase(dev, card):
+    """Fully-dynamic serving on the streamed kernels at full LJ width:
+    query -> insert -> delete per round, the lazy rebuild at the third
+    round's query.  Returns the kernels' launch counts over the rounds."""
+    import torch
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.core import graph as G
+    from repro_torch.graphs.generators import table2_graph
+    from repro_torch.kernels.bfs_prune.bfs_prune import (
+        bfs_admit_plane, bfs_admit_plane_streamed)
+    from repro_torch.kernels.dbl_query.dbl_query import (
+        dbl_query_verdicts, dbl_query_verdicts_streamed)
+    from repro_torch.serve.engine import QueryEngine
+    from repro_torch.serve.reach_server import ReachabilityServer
+
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    m = int(src.size)
+    rng = np.random.default_rng(2)
+    t = time.perf_counter()
+    g = make_graph(src, dst, n, m_cap=m + N_LJ_ROUNDS * INSERTS, device=dev)
+    idx = DBLIndex.build(g, n_cap=n, k=64, k_prime=64, max_iters=64,
+                         check="raise", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    # how often the preset repeats a pair: a deleted pair kills every copy
+    _, inverse, mult = np.unique(src.astype(np.int64) * n + dst,
+                                 return_inverse=True, return_counts=True)
+    emit("dynamic_build", n=n, m=m, k=64, k_prime=64, build_s=build_s,
+         distinct_pairs=int(mult.size),
+         single_slot_pairs=int((mult == 1).sum()),
+         mean_copies_of_a_slots_pair=float(mult[inverse].mean()),
+         card=card)
+    srv = ReachabilityServer(
+        index=None, engine=QueryEngine(idx, bfs_chunk=BFS_CHUNK,
+                                       max_iters=64, bfs_kernel=True,
+                                       streaming=True),
+        rebuild_mode="auto", rebuild_dead_ratio=DEAD_RATIO)
+
+    counters = (dbl_query_verdicts_streamed, bfs_admit_plane_streamed,
+                dbl_query_verdicts, bfs_admit_plane)
+    for f in counters:
+        f.launches = 0
+    checked = 0
+    for r in range(N_LJ_ROUNDS):
+        if srv.engine_stats()["rebuild_due"]:
+            dirty_checks(srv.index, card)
+        u = rng.integers(0, n, QUERIES).astype(np.int32)
+        v = rng.integers(0, n, QUERIES).astype(np.int32)
+        ns = rng.integers(0, n, INSERTS).astype(np.int32)
+        nd = rng.integers(0, n, INSERTS).astype(np.int32)
+        es, ed = live_edges(srv.index.graph)   # this round's snapshot
+        dirty = srv.dirty
+        before = srv.engine.stats.as_dict()
+        rebuild_s0 = srv.stats.rebuild_s
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ans = srv.query(u, v)            # a due lazy rebuild runs first
+        rebuild_s = srv.stats.rebuild_s - rebuild_s0
+        query_s = time.perf_counter() - t - rebuild_s
+        t = time.perf_counter()
+        srv.insert(ns, nd)
+        insert_s = time.perf_counter() - t
+        # a deleted pair kills every slot that holds it, and the preset's
+        # generator repeats pairs (850 000 slots, 24 730 distinct pairs):
+        # draw from the pairs that hold one live slot, so that a round
+        # tombstones exactly DELETES slots
+        ls, ld = live_edges(srv.index.graph)
+        pairs, mult = np.unique(ls.astype(np.int64) * n + ld,
+                                return_counts=True)
+        pick = rng.choice(pairs[mult == 1], DELETES, replace=False)
+        ds, dd = (pick // n).astype(np.int32), (pick % n).astype(np.int32)
+        t = time.perf_counter()
+        srv.delete(ds, dd)
+        delete_s = time.perf_counter() - t
+        after = srv.engine.stats.as_dict()
+        residue = after["prune_hits"]["bfs"] - before["prune_hits"]["bfs"]
+        lanes = rng.choice(QUERIES, RANDOM_CHECKS, replace=False)
+        reach = host_reach(n, es, ed, np.unique(u[lanes]))
+        want = np.array([reach[int(u[i])][v[i]] for i in lanes])
+        bad = int((ans[lanes] != want).sum())
+        if bad:
+            raise AssertionError(f"dynamic round {r}: {bad} of "
+                                 f"{lanes.size} checked answers differ from "
+                                 "the host BFS over the live edges")
+        checked += lanes.size
+        emit("dynamic_round", round=r, queries=QUERIES,
+             dead_edges=int(G.dead_edge_count(srv.index.graph)),
+             dirty_at_query=dirty and not rebuild_s,
+             query_ms=query_s * 1e3, qps=QUERIES / query_s,
+             rebuild_ms=rebuild_s * 1e3,
+             last_rebuild=srv.engine.last_rebuild_info if rebuild_s
+             else None,
+             insert_ms=insert_s * 1e3, inserts=INSERTS,
+             delete_ms=delete_s * 1e3, deletes=DELETES,
+             rho=1 - residue / QUERIES, residue_lanes=residue,
+             rebuild_due=srv.engine_stats()["rebuild_due"], card=card)
+    launches = {"streamed_verdicts_kernel":
+                dbl_query_verdicts_streamed.launches,
+                "streamed_admit_kernel": bfs_admit_plane_streamed.launches}
+    grid = {"verdicts_kernel": dbl_query_verdicts.launches,
+            "admit_kernel": bfs_admit_plane.launches}
+    emit("dynamic_launches", **launches, grid_kernels=grid,
+         rebuilds=srv.stats.rebuilds, delta_rebuilds=srv.stats.delta_rebuilds,
+         checked_lanes=checked, mismatches=0)
+    for name, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{name} never launched in the dynamic "
+                                 "phase")
+    if any(grid.values()):
+        raise AssertionError(f"the streaming engine launched a grid "
+                             f"kernel: {grid}")
+    if srv.stats.rebuilds < 1:
+        raise AssertionError("the lazy rebuild never ran")
+    # a round on the dirty index, through the engine (the server would run
+    # its due rebuild first)
+    profile_round(srv.engine, rng, n, card, phase="dynamic_profile")
+    return launches
+
+
+def profile_round(srv, rng, n, card, phase="profile"):
+    """One more served round (20 000 queries, then 100 inserts) through
+    ``srv`` (a server or an engine) under ``torch.profiler``: device time
+    by kernel and the device's busy share of the round's wall time.  Runs
+    after the launch counts were read."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -409,7 +681,7 @@ def profile_round(srv, rng, n, card):
     device_ms = sum(us for us, _ in per_kernel.values()) / 1e3
     wall_ms = (t_end - t) * 1e3
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
-    emit("profile", card=card, wall_ms=wall_ms,
+    emit(phase, card=card, wall_ms=wall_ms,
          query_wall_ms=(tq - t) * 1e3, insert_wall_ms=(t_end - tq) * 1e3,
          device_ms=device_ms if per_kernel else "not measured",
          device_busy_share=device_ms / wall_ms if per_kernel
@@ -432,12 +704,12 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t = time.perf_counter()
-    _build.build(["dbl_query", "bfs_prune"])
-    _build.load("dbl_query")
-    _build.load("bfs_prune")
+    _build.build(_build.SIGNATURES)
+    for name in _build.SIGNATURES:
+        _build.load(name)
     emit("build", seconds=time.perf_counter() - t,
          libs=[str(_build.library_path(n).relative_to(ROOT))
-               for n in ("dbl_query", "bfs_prune")])
+               for n in _build.SIGNATURES])
 
     worst, cases = parity_sweep(dev)
     emit("parity", cases=cases, max_abs_err=worst, bitwise=True)
@@ -445,12 +717,20 @@ def main():
     emit("kernel_times", card=card, **timings)
 
     launches = main_path(dev, card)
+    launches.update(dynamic_phase(dev, card))
 
+    csrc = "src/repro_torch/kernels/csrc"
     meta = {
-        "verdicts_kernel": ("src/repro_torch/kernels/csrc/dbl_query.cu",
+        "verdicts_kernel": (f"{csrc}/dbl_query.cu",
                             "src/repro/kernels/dbl_query/dbl_query.py:94"),
-        "admit_kernel": ("src/repro_torch/kernels/csrc/bfs_prune.cu",
+        "admit_kernel": (f"{csrc}/bfs_prune.cu",
                          "src/repro/kernels/bfs_prune/bfs_prune.py:77"),
+        "streamed_verdicts_kernel": (
+            f"{csrc}/dbl_query_streamed.cu",
+            "src/repro/kernels/dbl_query/dbl_query.py:272"),
+        "streamed_admit_kernel": (
+            f"{csrc}/bfs_prune_streamed.cu",
+            "src/repro/kernels/bfs_prune/bfs_prune.py:228"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -3,13 +3,26 @@
     idx = DBLIndex.build(g, n_cap=..., k=64, k_prime=64)   # Alg 1
     ans = idx.query(u, v)                                  # Alg 2
     idx = idx.insert_edges(src, dst)                       # Alg 3 (batched)
+    idx = idx.delete_edges(src, dst)       # tombstones, labels go dirty
+    idx = idx.rebuild(mode="auto")         # label rebuild over live edges
 
 Bool planes (n_cap, k) uint8 are the source of truth; packed int32 words
 are kept in sync and feed the query path and the kernels.  This slice
 serves the default label families ("dl", "bl") with the replicated layout
-and bool planes; deletions, rebuilds and the "il" family come in later
-slices and raise ``NotImplementedError`` here.  ``from_numpy``/``to_numpy``
-carry an index to and from the reference's field names.
+and bool planes; the "il" family comes in a later slice and raises
+``NotImplementedError`` here.  ``from_numpy``/``to_numpy`` carry an index
+to and from the reference's field names.
+
+**Fully-dynamic mode.**  ``delete_edges`` stamps tombstones and leaves the
+labels as a sound over-approximation; while dirty (``graph.del_epoch`` is
+ahead of ``label_del_epoch``) queries downgrade DL positives and the
+theorem negatives to a live-edge BFS, and BL negatives stay valid.
+``rebuild`` clears the dirty state: ``"full"`` re-runs Alg 1 over the live
+edges, ``"delta"`` resets only the label entries a deleted edge (or
+landmark/leaf churn) could have invalidated and re-runs the monotone
+fixpoint from there, reaching the same least fixpoint bit for bit, and
+``"auto"`` picks by the invalidation estimate.  A saturated index always
+rebuilds in full.
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ from repro_torch.device import resolve_device
 from . import bitset
 from . import graph as G
 from . import labels as L
+from . import propagate as P
 from . import query as Q
 from . import select as S
 from . import update as U
@@ -66,6 +80,23 @@ def not_ported(what: str, where: str) -> NotImplementedError:
 
 
 _PLANES = ("dl_in", "dl_out", "bl_in", "bl_out")
+
+
+def _host_reach(src: np.ndarray, dst: np.ndarray, live: np.ndarray,
+                seeds: np.ndarray) -> np.ndarray:
+    """(n_cap,) bool: host reachability closure of ``seeds`` over the
+    ``live`` edges (inclusive), a level-synchronous numpy BFS.  The CPU
+    twin of ``propagate.reach_mask``; the delta plan takes this one for
+    an index on the CPU and ``reach_mask`` on the card."""
+    reach = seeds.copy()
+    frontier = seeds.copy()
+    n = seeds.shape[0]
+    while frontier.any():
+        hit = np.zeros(n, bool)
+        hit[dst[live & frontier[src]]] = True
+        frontier = hit & ~reach
+        reach |= frontier
+    return reach
 
 
 @dataclass
@@ -189,10 +220,196 @@ class DBLIndex:
                        epoch=epoch2, saturated=self.saturated or sat_now)
 
     def delete_edges(self, del_src, del_dst) -> "DBLIndex":
-        raise not_ported("delete_edges", "queue 1, item 11")
+        """Tombstone every live edge matching a (src, dst) pair: O(m) mask
+        work, no label recomputation.  The returned index is dirty until
+        ``rebuild()``."""
+        g2, epoch2 = U.delete_and_mark(
+            self.graph, np.asarray(del_src, np.int32),
+            np.asarray(del_dst, np.int32), self.epoch)
+        return replace(self, graph=g2, epoch=epoch2)
 
     def rebuild(self, **kw) -> "DBLIndex":
-        raise not_ported("rebuild", "queue 1, item 11")
+        """Label rebuild over the live edge set; see ``rebuild_info``."""
+        return self.rebuild_info(**kw)[0]
+
+    def rebuild_info(self, *, mode: str = "full", selection: str = "product",
+                     leaf_r: int = 0, max_iters: int = 256,
+                     compact: bool = True, check: str = "warn",
+                     delta_threshold: float = 0.99,
+                     plane_repr: str = "bool") -> tuple["DBLIndex", dict]:
+        """Lazy label rebuild over the live edge set, clearing the dirty
+        state, plus a report ``info`` of what ran.
+
+        ``mode="full"`` re-runs Alg 1; ``"delta"`` repairs only what a
+        tombstone or landmark/leaf churn could have invalidated (bitwise
+        equal to full); ``"auto"`` takes delta unless the estimated
+        invalidated fraction exceeds ``delta_threshold``.  A saturated
+        index rebuilds in full (truncated labels are no sound delta base).
+        ``info["mode"]`` is the path that ran, ``info["reason"]`` one of
+        ``"forced"``/``"estimate"``/``"saturated"``, and
+        ``info["estimate"]`` the delta plan's estimate whenever one was
+        computed.  ``compact`` squeezes tombstones out of the edge arrays
+        (slots renumber: a rebuild starts a new snapshot lineage).  The
+        snapshot epoch goes up by one; ``saturated`` reflects this
+        rebuild's own fixpoints, surfaced by ``check`` as in ``build``."""
+        if mode not in ("full", "delta", "auto"):
+            raise ValueError(f"unknown rebuild mode {mode!r}")
+        if plane_repr != "bool":
+            raise not_ported(f"plane_repr={plane_repr!r}", "queue 1, item 13")
+        _check_mode(check)
+        full_kw = dict(selection=selection, leaf_r=leaf_r,
+                       max_iters=max_iters, compact=compact, check=check)
+        if mode == "full":
+            return self._full_rebuild(**full_kw), \
+                {"mode": "full", "reason": "forced"}
+        if self.saturated:
+            return self._full_rebuild(**full_kw), \
+                {"mode": "full", "reason": "saturated"}
+        plan = self._delta_plan(selection=selection, leaf_r=leaf_r)
+        est = plan["estimate"]
+        if mode == "auto" and est["frac"] > delta_threshold:
+            return self._full_rebuild(**full_kw), \
+                {"mode": "full", "reason": "estimate", "estimate": est}
+        idx = self._delta_rebuild(plan, max_iters=max_iters,
+                                  compact=compact, check=check)
+        reason = "forced" if mode == "delta" else "estimate"
+        return idx, {"mode": "delta", "reason": reason, "estimate": est}
+
+    def _full_rebuild(self, *, selection: str, leaf_r: int, max_iters: int,
+                      compact: bool, check: str) -> "DBLIndex":
+        g = G.compact(self.graph) if compact else self.graph
+        idx = DBLIndex.build(g, n_cap=self.n_cap, k=self.k,
+                             k_prime=self.k_prime, selection=selection,
+                             leaf_r=leaf_r, max_iters=max_iters, check=check,
+                             device=self.device)
+        return replace(idx, epoch=self.epoch + 1)
+
+    def _delta_plan(self, *, selection: str, leaf_r: int) -> dict:
+        """The invalidation closures per direction, the re-selected seed
+        sets, the fresh-column masks and the invalidation estimate the
+        auto policy reads.  The closures run on the host for an index on
+        the CPU (``_host_reach``) and on the device otherwise
+        (``reach_mask``, converging within ``n_cap`` rounds)."""
+        g = self.graph
+        n_cap, k, kp = self.n_cap, self.k, self.k_prime
+        lde = self.label_del_epoch
+        # the edge set the labels are an exact fixpoint over: everything
+        # live now plus everything tombstoned since the last (re)build
+        old_live = G.edge_mask(g, lde)
+        deleted = G.deleted_since(g, lde)
+        seeds_f = torch.zeros(n_cap, dtype=torch.bool, device=self.device)
+        seeds_f[g.dst[deleted].long()] = True
+        seeds_b = torch.zeros(n_cap, dtype=torch.bool, device=self.device)
+        seeds_b[g.src[deleted].long()] = True
+        if self.device.type == "cpu":
+            s_np, d_np = g.src.numpy(), g.dst.numpy()
+            live_np = old_live.numpy()
+            dirty_fwd = torch.from_numpy(
+                _host_reach(s_np, d_np, live_np, seeds_f.numpy()))
+            dirty_bwd = torch.from_numpy(
+                _host_reach(d_np, s_np, live_np, seeds_b.numpy()))
+        else:
+            dirty_fwd = P.reach_mask(g.src, g.dst, old_live, seeds_f,
+                                     n_cap=n_cap, max_iters=n_cap)[0]
+            dirty_bwd = P.reach_mask(g.src, g.dst, old_live, seeds_b,
+                                     n_cap=n_cap, max_iters=n_cap,
+                                     reverse=True)[0]
+        landmarks = S.select_landmarks(g, n_cap=n_cap, k=k, method=selection)
+        sources, sinks = S.leaf_masks(g, n_cap=n_cap, leaf_r=leaf_r)
+        dl_fresh = ~(landmarks[:, None] == self.landmarks[None, :]).any(1)
+        fresh_fwd = torch.cat([dl_fresh, L.bucket_churn(
+            self.bl_sources, sources, k_prime=kp)]).cpu().numpy()
+        fresh_bwd = torch.cat([dl_fresh, L.bucket_churn(
+            self.bl_sinks, sinks, k_prime=kp)]).cpu().numpy()
+        n_dirty_f = int(dirty_fwd.sum())
+        n_dirty_b = int(dirty_bwd.sum())
+        n = max(int(g.n), 1)
+        rf = float(n_dirty_f) / n
+        rb = float(n_dirty_b) / n
+
+        # invalidated-entry fraction per plane (rows ∪ columns); the auto
+        # policy reads the worst of the four
+        def plane_frac(r, c):
+            return r + c - r * c
+        fracs = {
+            "dl_in": plane_frac(rf, float(fresh_fwd[:k].mean())),
+            "dl_out": plane_frac(rb, float(fresh_bwd[:k].mean())),
+            "bl_in": plane_frac(rf, float(fresh_fwd[k:].mean())),
+            "bl_out": plane_frac(rb, float(fresh_bwd[k:].mean())),
+        }
+        estimate = {
+            "frac": max(fracs.values()),
+            "plane_fracs": fracs,
+            "dirty_fwd": n_dirty_f,
+            "dirty_bwd": n_dirty_b,
+            "fresh_cols_fwd": int(fresh_fwd.sum()),
+            "fresh_cols_bwd": int(fresh_bwd.sum()),
+            "dead_edges": int(G.dead_edge_count(g)),
+        }
+        return {"dirty_fwd": dirty_fwd.to(self.device),
+                "dirty_bwd": dirty_bwd.to(self.device),
+                "landmarks": landmarks, "sources": sources, "sinks": sinks,
+                "estimate": estimate}
+
+    def _delta_rebuild(self, plan: dict, *, max_iters: int, compact: bool,
+                       check: str) -> "DBLIndex":
+        """Execute a delta plan: one fused fixpoint per direction.  With
+        fresh columns the pass relaxes the whole live edge set (churned
+        lanes rebuild from their seeds in the same rounds); without, it
+        relaxes only the live edges into the dirty region, since pushes
+        into clean vertices change nothing."""
+        g = self.graph
+        n_cap, k = self.n_cap, self.k
+        live = G.edge_mask(g)
+        (x_fwd, x_bwd, fresh_fwd, fresh_bwd, seed_fwd, seed_bwd,
+         fr_fwd, fr_bwd) = L.delta_plane_state(
+            g, self.dl_in, self.dl_out, self.bl_in, self.bl_out,
+            self.landmarks, plan["landmarks"], self.bl_sources,
+            self.bl_sinks, plan["sources"], plan["sinks"],
+            plan["dirty_fwd"], plan["dirty_bwd"],
+            n_cap=n_cap, k=k, k_prime=self.k_prime)
+        iters = []
+
+        def run_direction(x, seed, fresh, dirty, frontier, reverse):
+            if bool(fresh.any()):
+                # fresh seeds must reach everywhere: the whole live edge
+                # set, with the churned lanes' seed rows on the frontier
+                fr = frontier | (seed.bool() & fresh[None, :]).any(1)
+                es, ed, el = g.src, g.dst, live
+            else:
+                # exactly the live edges into the dirty region; the
+                # reference pads this bucket to a power of two for XLA's
+                # compiled shapes, and padded slots are dead edges that
+                # change no plane and no round count
+                target = g.src if reverse else g.dst
+                sel = torch.nonzero(
+                    live & dirty[target.clamp(0, n_cap - 1).long()]
+                ).squeeze(1)
+                fr = frontier
+                es, ed = g.src[sel], g.dst[sel]
+                el = torch.ones(sel.shape, dtype=torch.bool,
+                                device=self.device)
+            x, it = P.propagate(x, es, ed, el, fr, n_cap=n_cap,
+                                max_iters=max_iters, reverse=reverse,
+                                inplace=True)
+            iters.append(it)
+            return x
+
+        x_fwd = run_direction(x_fwd, seed_fwd, fresh_fwd, plan["dirty_fwd"],
+                              fr_fwd, False)
+        x_bwd = run_direction(x_bwd, seed_bwd, fresh_bwd, plan["dirty_bwd"],
+                              fr_bwd, True)
+        g2 = G.compact(g) if compact else g
+        sat = U.saturated(iters, max_iters)
+        _surface(sat, check, max_iters)
+        dl_in, bl_in = x_fwd[:, :k].contiguous(), x_fwd[:, k:].contiguous()
+        dl_out, bl_out = x_bwd[:, :k].contiguous(), \
+            x_bwd[:, k:].contiguous()
+        return DBLIndex(g2, plan["landmarks"], dl_in, dl_out, bl_in, bl_out,
+                        Q.pack_labels(dl_in, dl_out, bl_in, bl_out),
+                        plan["sources"], plan["sinks"],
+                        epoch=self.epoch + 1, label_del_epoch=g2.del_epoch,
+                        saturated=sat)
 
     # ---- introspection ----------------------------------------------------
     def label_bytes(self) -> int:

@@ -5,12 +5,12 @@ masks with ``edge_mask(g)``.  Vertices are ``0..n-1`` inside a capacity
 ``n_cap`` that the label planes carry.  Insertions append.  Deletions are
 epoch-versioned tombstones in ``del_at`` (``ALIVE`` = never deleted): an
 edge slot is live at delete epoch ``D`` iff ``slot < m and del_at > D``.
-This slice ports the insert-only surface; ``del_at``/``del_epoch`` are kept
-so an index carried over from the reference keeps its tombstones.
+``compact`` squeezes the tombstones out for a label rebuild.
 
 ``n`` is a 0-d int32 tensor on the graph's device (an insert can grow it
 without a host sync); ``m`` and ``del_epoch`` are host ints, because every
-insert appends a batch whose size the host knows.
+insert appends a batch whose size the host knows and every delete batch
+bumps the epoch by one (``compact`` reads the live count once).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from repro_torch.device import resolve_device
 
 #: ``del_at`` sentinel for never-deleted edges, above any delete epoch.
 ALIVE = np.iinfo(np.int32).max
+_U32 = 0xFFFFFFFF
 
 
 @dataclass
@@ -74,6 +75,22 @@ def edge_mask(g: Graph, at_del_epoch: int | None = None) -> torch.Tensor:
     return in_prefix & (g.del_at > d)
 
 
+def deleted_since(g: Graph, d: int) -> torch.Tensor:
+    """(m_cap,) bool: slots live at delete epoch ``d`` but tombstoned now,
+    the edges a delta label rebuild from epoch ``d`` must account for."""
+    return edge_mask(g, d) & ~edge_mask(g)
+
+
+def live_edge_count(g: Graph) -> torch.Tensor:
+    """() int32: number of live (non-tombstoned) edges."""
+    return edge_mask(g).sum().to(torch.int32)
+
+
+def dead_edge_count(g: Graph) -> torch.Tensor:
+    """() int32: number of tombstoned slots below the high-water mark."""
+    return (g.m - live_edge_count(g)).to(torch.int32)
+
+
 def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sum ``vals`` into ``num_segments`` bins; ids outside the range are
@@ -109,6 +126,40 @@ def insert_edges(g: Graph, new_src: torch.Tensor, new_dst: torch.Tensor,
         nmax = torch.maximum(new_src.max(), new_dst.max()) + 1
         n = torch.maximum(n, nmax.to(torch.int32))
     return replace(g, src=src, dst=dst, n=n, m=g.m + b)
+
+
+def delete_edges(g: Graph, del_src, del_dst) -> Graph:
+    """Tombstone every live edge matching a (del_src, del_dst) pair.
+
+    One call is one delete batch: ``del_epoch`` bumps by 1 and every killed
+    slot is stamped ``del_at = del_epoch + 1``.  Parallel duplicates of a
+    pair all die; a pair with no live match is a no-op (the epoch still
+    bumps).  Labels are not touched.  Pairs are matched as 64-bit keys
+    ``src * 2**32 + dst`` with ``isin``, the same set as the reference's
+    all-pairs comparison without its (m_cap, b) intermediate."""
+    ds = torch.as_tensor(del_src, dtype=torch.int64, device=g.device)
+    dd = torch.as_tensor(del_dst, dtype=torch.int64, device=g.device)
+    keys = (g.src.to(torch.int64) << 32) | (g.dst.to(torch.int64) & _U32)
+    hit = torch.isin(keys, (ds << 32) | (dd & _U32)) & edge_mask(g)
+    epoch2 = g.del_epoch + 1
+    del_at = torch.where(hit, torch.full_like(g.del_at, epoch2), g.del_at)
+    return replace(g, del_at=del_at, del_epoch=epoch2)
+
+
+def compact(g: Graph) -> Graph:
+    """Squeeze tombstones out: live edges move to the front in their
+    order, ``m`` drops to the live count and the delete clock resets to 0.
+    Slots are renumbered, so snapshot bookkeeping keyed on (m, del_epoch)
+    must be re-anchored: the serving engine re-binds its lineage."""
+    live = edge_mask(g)
+    keep = torch.nonzero(live).squeeze(1)
+    m = int(keep.numel())
+    src = torch.zeros_like(g.src)
+    dst = torch.zeros_like(g.dst)
+    src[:m] = g.src[keep]
+    dst[:m] = g.dst[keep]
+    return Graph(src, dst, g.n, m,
+                 torch.full_like(g.del_at, ALIVE), 0)
 
 
 def reverse(g: Graph) -> Graph:

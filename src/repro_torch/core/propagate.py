@@ -70,6 +70,37 @@ def propagate(labels: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return labels, it
 
 
+def reach_mask(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
+               seeds: torch.Tensor, *, n_cap: int, max_iters: int,
+               reverse: bool = False) -> tuple[torch.Tensor, int]:
+    """(n_cap,) bool: the ``live``-edge reachability closure of ``seeds``
+    (inclusive), a single-lane OR fixpoint.  Returns (mask, iters).
+
+    The invalidation frontier of the delta rebuild: seeded from the heads
+    of tombstoned edges (tails with ``reverse=True``) and propagated over
+    the edge set the labels were built against.  With ``max_iters >=
+    n_cap`` the closure always converges."""
+    plane = seeds[:, None].to(torch.uint8)
+    out, iters = propagate(plane, src, dst, live, seeds, n_cap=n_cap,
+                           max_iters=max_iters, reverse=reverse,
+                           inplace=True)
+    return out[:, 0].to(torch.bool), iters
+
+
+def push_boundary(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
+                  dirty: torch.Tensor, *, n_cap: int,
+                  reverse: bool = False) -> torch.Tensor:
+    """(n_cap,) bool: vertices with a live edge into the ``dirty`` set (in
+    the propagation direction).  With the dirty set they form the first
+    frontier of a delta fixpoint."""
+    if reverse:
+        src, dst = dst, src
+    hit = live & dirty[dst.clamp(0, n_cap - 1).long()]
+    out = torch.zeros(n_cap, dtype=torch.uint8, device=dirty.device)
+    segment_or(out[:, None], hit[:, None], src)
+    return out.to(torch.bool)
+
+
 def seed_scatter_or(base: torch.Tensor, values: torch.Tensor,
                     at: torch.Tensor, n_cap: int, *, inplace: bool = False
                     ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -108,6 +108,40 @@ def label_verdicts(p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
     return cut_verdicts(p, u, v, 1, 0, True, il=il)
 
 
+def dirty_label_verdicts(p: PackedLabels, u: torch.Tensor, v: torch.Tensor
+                         ) -> torch.Tensor:
+    """(Q,) int8 verdicts sound for a dirty index (pending deletions):
+    self-queries stay +1, BL containment violations stay 0, everything
+    else is unknown and rides the live-edge BFS."""
+    _, bl_neg, _ = verdict_parts_rows(gather_rows(p, u, v))
+    return _verdict(u == v, bl_neg)
+
+
+def asof_verdicts(verd: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                  m_cut, m_total) -> torch.Tensor:
+    """Downgrade verdicts computed from newer labels to be valid as of a
+    per-lane edge-count cutoff: 0 stays 0 (unreachable under a superset
+    stays unreachable), +1 survives only on fresh lanes
+    (``m_cut >= m_total``) or self-queries, else it becomes -1."""
+    stale_pos = (verd == 1) & ~(m_cut >= m_total) & (u != v)
+    return torch.where(stale_pos, torch.full_like(verd, -1),
+                       verd).to(torch.int8)
+
+
+def label_stats(p: PackedLabels, u: torch.Tensor, v: torch.Tensor) -> dict:
+    """Per-mechanism answer masks (paper Table 4 columns)."""
+    r = gather_rows(p, u, v)
+    pos = bitset.intersect_any(r.dlo_u, r.dli_v) | (u == v)
+    thm1 = ~pos & bitset.intersect_any(r.dlo_v, r.dli_u)
+    thm2 = ~pos & (bitset.intersect_any(r.dlo_u, r.dli_u)
+                   | bitset.intersect_any(r.dlo_v, r.dli_v))
+    bl_neg = (~bitset.subset(r.blin_u, r.blin_v)
+              | ~bitset.subset(r.blout_v, r.blout_u))
+    dl_only = pos | thm1 | thm2
+    return {"dl": dl_only, "bl": ~pos & bl_neg,
+            "dbl": dl_only | (~pos & bl_neg)}
+
+
 def cut_verdicts(p: PackedLabels, u, v, m_cut, m_total, d_fresh,
                  il=None) -> torch.Tensor:
     """(Q,) int8 verdicts with both staleness cutoffs: label positives on

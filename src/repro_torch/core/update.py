@@ -58,6 +58,15 @@ def insert_and_update(g: G.Graph, dl_in, dl_out, bl_in, bl_out,
         epoch + 1
 
 
+def delete_and_mark(g: G.Graph, del_src, del_dst, epoch: int = 0):
+    """Returns (graph', epoch').  Tombstones the matching live edges and
+    bumps both clocks: the graph's ``del_epoch`` (one delete batch) and the
+    snapshot ``epoch``.  Labels are not touched: deletions only shrink
+    reachability, so the labels stay a sound over-approximation whose
+    positive evidence the query path downgrades until a rebuild."""
+    return G.delete_edges(g, del_src, del_dst), epoch + 1
+
+
 def saturated(iters, max_iters: int) -> bool:
     """True when any plane's fixpoint was cut off at ``max_iters`` without
     converging (reported as ``max_iters + 1``).  Converging in exactly

@@ -16,24 +16,41 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-#: argument types of each library's entry point, set once at load: device
-#: pointers and the stream are ``c_void_p``, sizes and totals ``c_int``.
+#: entry points of each library with their (argument types, result type),
+#: set once at load: device pointers and the stream are ``c_void_p``,
+#: sizes and totals ``c_int``.  Launch entry points return a cudaError_t.
 SIGNATURES = {
-    "dbl_query": ("dbl_query_verdicts",
-                  [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
-                   _P, _P, _I, _P, _I, _P]),
-    "bfs_prune": ("bfs_admit_plane",
-                  [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
-                   _P, _P]),
+    "dbl_query": {"dbl_query_verdicts": (
+        [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
+         _P, _I, _P], _I)},
+    "bfs_prune": {"bfs_admit_plane": (
+        [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P],
+        _I)},
+    "dbl_query_streamed": {
+        "dbl_query_verdicts_streamed": (
+            [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P],
+            _I),
+        "dbl_query_streamed_smem_bytes": ([_I, _I], _I)},
+    "bfs_prune_streamed": {
+        "bfs_admit_plane_streamed": (
+            [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P],
+            _I),
+        "bfs_prune_streamed_smem_bytes": ([_I, _I, _I, _I], _L)},
 }
+
+#: shared memory a block may take on Hopper (227 KB), see the opt-in in
+#: the sources
+MAX_SMEM_BYTES = 232_448
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -94,9 +111,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        entry, argtypes = SIGNATURES[name]
-        getattr(lib, entry).argtypes = argtypes
-        getattr(lib, entry).restype = ctypes.c_int
+        for entry, (argtypes, restype) in SIGNATURES[name].items():
+            getattr(lib, entry).argtypes = argtypes
+            getattr(lib, entry).restype = restype
         _LIBS[name] = lib
     return lib
 
@@ -112,3 +129,8 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 def ptr(t) -> ctypes.c_void_p:
     """Device pointer of a tensor, or NULL for None."""
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (persistent grids)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

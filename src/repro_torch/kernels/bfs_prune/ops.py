@@ -5,14 +5,16 @@ import torch
 
 from repro_torch.core.query import PackedLabels, il_violation_plane
 from repro_torch.device import resolve_device
-from .bfs_prune import bfs_admit_plane
+from .bfs_prune import bfs_admit_plane, bfs_admit_plane_streamed
 
 
 def admit_plane(p: PackedLabels, u, v, m_cut=None, m_total=None,
                 d_cut=None, d_total=None, il=None, il_on=None, *,
-                out_dtype=torch.bool, device=None) -> torch.Tensor:
+                out_dtype=torch.bool, device=None,
+                streaming: bool = False) -> torch.Tensor:
     """(n_cap, Qc) ``out_dtype`` admit plane for the pruned-BFS lanes: the
     kernel for CUDA labels, its plain version for CPU labels.
+    ``streaming=True`` routes to the streamed kernel.
 
     ``m_cut``/``d_cut`` (Qc,) with their totals gate the DL prune per lane.
     ``il`` = (il_in, il_out) ANDs the interval containment prune around the
@@ -28,10 +30,13 @@ def admit_plane(p: PackedLabels, u, v, m_cut=None, m_total=None,
             t, dtype=torch.int32, device=dev).contiguous()
 
     u, v = i32(u), i32(v)
-    out = bfs_admit_plane(p.bl_in, p.bl_out, p.dl_in, p.dl_out, u, v,
-                          i32(m_cut), None if m_total is None
-                          else int(m_total), i32(d_cut),
-                          None if d_total is None else int(d_total))
+    args = (p.bl_in, p.bl_out, p.dl_in, p.dl_out, u, v, i32(m_cut),
+            None if m_total is None else int(m_total), i32(d_cut),
+            None if d_total is None else int(d_total))
+    if streaming:
+        out = bfs_admit_plane_streamed(*args)
+    else:
+        out = bfs_admit_plane(*args)
     if il is not None:
         bad = il_violation_plane(il, v)
         if il_on is not None:

@@ -12,6 +12,13 @@ time is launch latency; see the source for the design.
 ``dbl_query_verdicts`` launches the kernel for CUDA tensors and takes
 ``verdicts_plain`` for CPU tensors.  ``dbl_query_verdicts.launches``
 counts kernel launches.
+
+The streamed kernel ``csrc/dbl_query_streamed.cu`` replaces
+``dbl_query_verdicts_streamed`` (body ``_make_streamed_kernel``, line 174):
+the same verdicts without interval planes, the query axis streamed in
+chunks, the cutoffs pre-combined into freshness rows.
+``dbl_query_verdicts_streamed`` and ``verdicts_streamed_plain`` are its
+wrapper and plain version.
 """
 from __future__ import annotations
 
@@ -115,3 +122,105 @@ def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
 
 
 dbl_query_verdicts.launches = 0
+
+
+# ------------------------------------------------- streamed (double-buffered)
+def freshness_rows(m_cut=None, m_total=None, d_cut=None, d_total=None
+                   ) -> torch.Tensor | None:
+    """The streamed kernels' pre-combined cutoffs, as the reference wrapper
+    forms them: (ncut, Q) int32 0/1 rows, row 0 = ``m_cut >= m_total`` and
+    row 1 = ``d_cut >= d_total``; None when no cutoff is given (ncut 0)."""
+    if (m_cut is None) != (m_total is None) or \
+            (d_cut is None) != (d_total is None):
+        raise ValueError("pass each cutoff with its total")
+    if d_cut is not None and m_cut is None:
+        raise ValueError("the tombstone cutoff needs the edge-count cutoff")
+    if m_cut is None:
+        return None
+    rows = [m_cut >= m_total]
+    if d_cut is not None:
+        rows.append(d_cut >= d_total)
+    return torch.stack(rows).to(torch.int32)
+
+
+def verdicts_streamed_plain(dl_in, dl_out, bl_in, bl_out, u, v, cut=None,
+                            out_dtype=torch.int32) -> torch.Tensor:
+    """The streamed kernel's function in PyTorch ops: the verdicts of
+    ``core.query.cut_verdicts_rows`` over clamped row gathers, gated by the
+    pre-combined 0/1 freshness rows ``cut`` (ncut, Q) (twin of the
+    reference's ``dbl_query_verdicts_streamed``; no interval planes)."""
+    p = Q.PackedLabels(dl_in, dl_out, bl_in, bl_out)
+    ncut = 0 if cut is None else cut.shape[0]
+    fresh = 1 if ncut == 0 else cut[0]
+    d_fresh = True if ncut < 2 else cut[1] != 0
+    verd = Q.cut_verdicts_rows(Q.gather_rows(p, u, v), u, v, fresh, 1,
+                               d_fresh)
+    return verd.to(out_dtype)
+
+
+def dbl_query_verdicts_streamed(dl_in, dl_out, bl_in, bl_out, u, v,
+                                m_cut=None, m_total=None, d_cut=None,
+                                d_total=None, *, out_dtype=torch.int32
+                                ) -> torch.Tensor:
+    """(Q,) ``out_dtype`` verdicts, the same as ``dbl_query_verdicts``
+    without interval planes, through the streamed kernel: the cutoffs are
+    pre-combined into 0/1 freshness rows (``freshness_rows``) and handed to
+    ``streamed_verdicts_rows``."""
+    return streamed_verdicts_rows(
+        dl_in, dl_out, bl_in, bl_out, u, v,
+        freshness_rows(m_cut, m_total, d_cut, d_total), out_dtype=out_dtype)
+
+
+def streamed_verdicts_rows(dl_in, dl_out, bl_in, bl_out, u, v, cut=None, *,
+                           out_dtype=torch.int32) -> torch.Tensor:
+    """The streamed kernel ``csrc/dbl_query_streamed.cu`` on pre-combined
+    freshness rows ``cut`` (ncut, Q) int32 0/1 or None (persistent blocks,
+    a two-stage cp.async ring over 128-lane chunks of the query axis).
+    CPU tensors take ``verdicts_streamed_plain``.
+    ``dbl_query_verdicts_streamed.launches`` counts kernel launches."""
+    if out_dtype not in (torch.int8, torch.int32):
+        raise ValueError(f"out_dtype must be int8 or int32, got {out_dtype}")
+    if cut is not None and cut.shape[0] not in (1, 2):
+        raise ValueError(f"cut must hold 1 or 2 freshness rows, got "
+                         f"{cut.shape[0]}")
+    if u.device.type == "cpu":
+        return verdicts_streamed_plain(dl_in, dl_out, bl_in, bl_out, u, v,
+                                       cut, out_dtype)
+    if u.device.type != "cuda":
+        raise ValueError(f"no kernel for device {u.device}")
+    dev = u.device
+    n_cap, wd = dl_in.shape
+    wb = bl_in.shape[1]
+    q = u.shape[0]
+    _check("dl_in", dl_in, dev)
+    _check("dl_out", dl_out, dev, (n_cap, wd))
+    _check("bl_in", bl_in, dev, (n_cap, wb))
+    _check("bl_out", bl_out, dev, (n_cap, wb))
+    _check("u", u, dev, (q,))
+    _check("v", v, dev, (q,))
+    ncut = 0
+    if cut is not None:
+        ncut = cut.shape[0]
+        _check("cut", cut, dev, (ncut, q))
+    out = torch.empty(q, dtype=out_dtype, device=dev)
+    if q == 0:
+        return out
+    lib = _build.load("dbl_query_streamed")
+    smem = lib.dbl_query_streamed_smem_bytes(wd, wb)
+    if smem > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"W_dl={wd}, W_bl={wb} need {smem} bytes of shared "
+                         "memory per block, above the card's "
+                         f"{_build.MAX_SMEM_BYTES}")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        err = lib.dbl_query_verdicts_streamed(
+            p(dl_in), p(dl_out), wd, p(bl_in), p(bl_out), wb, n_cap, p(u),
+            p(v), q, p(cut), ncut, p(out), int(out_dtype == torch.int8),
+            _build.sm_count(dev), stream)
+    _build.check(lib, err, "streamed_verdicts_kernel")
+    dbl_query_verdicts_streamed.launches += 1
+    return out
+
+
+dbl_query_verdicts_streamed.launches = 0

@@ -19,11 +19,18 @@ pruned BFS.  The engine keeps that pipeline on the device:
   ``"as-of-submit"`` answers exact; ``"latest"`` lifts the cutoff;
 - **adaptive flushing**: ``flush_policy="deadline"`` resolves once the
   oldest submit is older than ``flush_deadline_ms``; ``"watermark"`` once
-  the pooled residue reaches ``flush_watermark`` lanes.
+  the pooled residue reaches ``flush_watermark`` lanes;
+- **fully-dynamic serving**: ``delete()`` drains in-flight submits, then
+  tombstones edges (the labels go dirty: positives and theorem negatives
+  ride a live-edge BFS); ``rebuild()`` rebuilds the labels (full, delta or
+  auto) and re-binds the engine to a new lineage;
+- **streamed kernels**: ``streaming=True`` routes the verdicts and (with
+  ``bfs_kernel``) the admit planes through the streamed kernels; on the
+  CPU the ``"torch"`` backend takes their plain versions.
 
 This slice serves the replicated layout with bool planes.  The query-axis
-mesh, vertex sharding, streamed kernels, packed planes, deletions,
-rebuilds and the AOT cache raise ``NotImplementedError``.
+mesh, vertex sharding, packed planes and the AOT cache raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import functools
 import time
 import warnings
 import weakref
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -42,7 +49,8 @@ from repro_torch.core.dbl import (DBLIndex, LabelSaturationWarning,
                                   _saturation_message, not_ported)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bfs_prune.ops import admit_plane
-from repro_torch.kernels.dbl_query.ops import verdicts_device
+from repro_torch.kernels.dbl_query.ops import (StreamILFallbackWarning,
+                                               verdicts_device)
 
 #: supported consistency modes (``"latest-snapshot"`` is an alias)
 CONSISTENCY_MODES = ("as-of-submit", "latest")
@@ -81,6 +89,9 @@ class EngineStats:
     bfs_answered: int = 0
     batches: int = 0
     inserts: int = 0
+    deletes: int = 0          # delete-batch pairs tombstoned
+    rebuilds: int = 0         # label rebuilds (dirty -> clean)
+    delta_rebuilds: int = 0   # rebuilds served by the delta path
     bfs_dispatches: int = 0
     flushes: int = 0
     policy_flushes: int = 0   # flushes initiated by the adaptive policy
@@ -97,6 +108,8 @@ class EngineStats:
         rho = self.label_answered / max(self.queries, 1)
         return {"queries": self.queries, "rho": rho,
                 "batches": self.batches, "inserts": self.inserts,
+                "deletes": self.deletes, "rebuilds": self.rebuilds,
+                "delta_rebuilds": self.delta_rebuilds,
                 "bfs_dispatches": self.bfs_dispatches,
                 "flushes": self.flushes,
                 "policy_flushes": self.policy_flushes,
@@ -169,11 +182,13 @@ class QueryEngine:
             raise ValueError("bfs_chunk and q_block must be positive")
         if mesh is not None:
             raise not_ported("the query-axis mesh", "queue 1, item 14")
+        if streaming and vertex_mesh is not None:
+            raise ValueError(
+                "the vertex-sharded layout reconstructs verdict row blocks "
+                "with collectives and never dispatches the query kernels; "
+                "streaming=True would be dead there")
         if vertex_mesh is not None:
             raise not_ported("the vertex-sharded layout", "queue 1, item 14")
-        if streaming:
-            raise not_ported("streaming=True (the streamed kernels)",
-                             "queue 2, kernels 3-4")
         if plane_repr != "bool":
             raise not_ported(f"plane_repr={plane_repr!r}", "queue 1, item 13")
         if frontier_dtype == "packed":
@@ -200,6 +215,10 @@ class QueryEngine:
         # tail, so nothing pads to it
         self.q_block = int(q_block)
         self.bfs_kernel = bool(bfs_kernel)
+        self.streaming = bool(streaming)
+        # per-engine latch: a streaming engine given interval planes warns
+        # once that its verdicts take the grid kernel
+        self._stream_il_warned = False
         self.consistency = select_consistency(consistency)
         self.frontier_dtype = frontier_dtype
         self.out_dtype = out_dtype
@@ -213,6 +232,7 @@ class QueryEngine:
         # donate: inserts rewrite the bound index's label planes in place
         self.donate = bool(donate)
         self.stats = EngineStats()
+        self.last_rebuild_info: dict | None = None   # set by rebuild()
         # lineage tells re-binds apart from in-place epoch bumps
         self._lineage = 0
         self._index: DBLIndex | None = None
@@ -260,12 +280,32 @@ class QueryEngine:
                              f"{self.device}")
 
     # ------------------------------------------------------------ phases
-    def _verdicts(self, p: Q.PackedLabels, u, v, m_cut, m_total, d_stale):
+    def _verdict_streaming(self, il) -> bool:
+        """Whether a verdict dispatch takes the streamed kernel.  With
+        interval planes it takes the grid kernel, and the engine warns
+        ``StreamILFallbackWarning`` once (the ops-level warning then stays
+        quiet for it)."""
+        if self.streaming and il is not None:
+            if not self._stream_il_warned:
+                self._stream_il_warned = True
+                warnings.warn(
+                    "streaming engine given interval-family planes: "
+                    "verdict dispatches fall back to the grid kernel "
+                    "(bitwise-identical verdicts); the streamed dbl_query "
+                    "kernel takes no interval-family operands",
+                    StreamILFallbackWarning, stacklevel=3)
+            return False
+        return self.streaming
+
+    def _verdicts(self, p: Q.PackedLabels, u, v, m_cut, m_total, d_stale,
+                  il=None):
         """Cutoff verdicts: the kernel on CUDA, its plain version on the
-        CPU.  A tombstone cutoff is passed only when the labels are stale."""
+        CPU.  A tombstone cutoff is passed only when the labels are stale;
+        ``il`` is the optional interval operand."""
         return verdicts_device(p, u, v, m_cut, m_total,
-                               *self._d_cut(u, d_stale),
-                               out_dtype=self._out_torch)
+                               *self._d_cut(u, d_stale), il,
+                               out_dtype=self._out_torch,
+                               streaming=self._verdict_streaming(il))
 
     @staticmethod
     def _d_cut(u, d_stale: bool):
@@ -276,15 +316,18 @@ class QueryEngine:
         return torch.zeros(u.shape, dtype=torch.int32, device=u.device), 1
 
     def label_phase(self, p: Q.PackedLabels, u: torch.Tensor,
-                    v: torch.Tensor, d_stale: bool):
+                    v: torch.Tensor, d_stale: bool, il=None):
         """Verdicts, attribution counts and the compaction of unknown
-        lanes.  Compaction is an O(Q) cumsum/scatter, not a sort: unknown
-        lanes keep submission order at slots [0, nu), known lanes fill the
-        tail, and endpoints are scattered straight to their slots."""
+        lanes.  ``il`` is the optional (il_in, il_out) interval operand of
+        the verdicts (no ported index carries one yet).  Compaction is an
+        O(Q) cumsum/scatter, not a sort: unknown lanes keep submission
+        order at slots [0, nu), known lanes fill the tail, and endpoints
+        are scattered straight to their slots."""
         fresh = torch.full(u.shape, Q.FRESH_CUT, dtype=torch.int32,
                            device=u.device)
-        verd = self._verdicts(p, u, v, fresh, 0, d_stale)
-        counts = Q.verdict_counts(verd, Q.gather_rows(p, u, v))
+        verd = self._verdicts(p, u, v, fresh, 0, d_stale, il)
+        counts = Q.verdict_counts(verd, Q.gather_rows(p, u, v),
+                                  Q.gather_il_rows(il, u, v))
         unknown = verd == -1
         n_unknown = unknown.sum().to(torch.int32)
         rank_u = torch.cumsum(unknown.to(torch.int32), 0)
@@ -319,7 +362,8 @@ class QueryEngine:
             admit = admit_plane(p, uu2.clamp(max=n_cap - 1), vv, m_cut, g.m,
                                 *self._d_cut(uu, d_stale),
                                 out_dtype=torch.int8,
-                                device=self.device.type)
+                                device=self.device.type,
+                                streaming=self.streaming)
         hit = Q.pruned_bfs(g, p, uu2, vv, admit, m_cut, not d_stale,
                            n_cap=n_cap, max_iters=self.max_iters,
                            frontier_dtype=self.frontier_dtype)
@@ -553,10 +597,40 @@ class QueryEngine:
         return self._index
 
     def delete(self, del_src, del_dst) -> DBLIndex:
-        raise not_ported("QueryEngine.delete", "queue 1, item 11")
+        """Tombstone every live edge matching a (src, dst) pair, without
+        label recomputation: the bound index goes (or stays) dirty until
+        ``rebuild()``.  In-flight submits are drained first: the lanes they
+        hold observed the edge set before the delete, which the dirty
+        index's live-edge BFS no longer sees."""
+        if self._index is None:
+            raise ValueError("engine has no bound index; use run()")
+        self._drain_inflight()
+        idx = self._index
+        ds = np.asarray(del_src, np.int32).ravel()
+        dd = np.asarray(del_dst, np.int32).ravel()
+        g2, epoch2 = U.delete_and_mark(idx.graph, ds, dd, self.epoch)
+        self._index = replace(idx, graph=g2, epoch=epoch2)
+        self.epoch += 1
+        self.stats.deletes += int(ds.size)
+        return self._index
 
     def rebuild(self, **build_kw) -> DBLIndex:
-        raise not_ported("QueryEngine.rebuild", "queue 1, item 11")
+        """Label rebuild over the live edge set (``DBLIndex.rebuild_info``;
+        ``mode`` "full" by default, "delta" or "auto"), then a re-bind to
+        the rebuilt index, which resolves in-flight submits of the
+        outgoing lineage first: compaction renumbers edge slots, so their
+        edge-count cutoffs mean nothing in the new one.  The path that ran
+        is kept in ``last_rebuild_info``."""
+        if self._index is None:
+            raise ValueError("engine has no bound index; use run()")
+        build_kw.setdefault("max_iters", self.max_iters)
+        new_idx, info = self._index.rebuild_info(**build_kw)
+        self.index = new_idx      # property setter: drain + new lineage
+        self.stats.rebuilds += 1
+        if info["mode"] == "delta":
+            self.stats.delta_rebuilds += 1
+        self.last_rebuild_info = info
+        return new_idx
 
     def aot_warmup(self, index, cache_dir, **kw):
         raise not_ported("the AOT executable cache", "queue 1, item 15")

@@ -1,17 +1,18 @@
-"""Batched reachability serving on a live DBL index.
+"""Batched reachability serving on a live, fully-dynamic DBL index.
 
 The serving form of the paper's query workload: interleaved batches of
-queries and edge insertions against one index, all through the
-``QueryEngine``.  Insertions bump the snapshot epoch without draining
-in-flight queries.
+queries, edge insertions and edge deletions against one index, all through
+the ``QueryEngine``.  Insertions bump the snapshot epoch without draining
+in-flight queries; deletions tombstone edges (the labels go dirty) and the
+labels are rebuilt lazily, scheduled once the tombstones pass
+``rebuild_dead_ratio`` of the live edges and run at the next flush or
+query boundary.
 
 - synchronous ``query()``: submit and resolve in one call;
 - pipelined ``submit()`` / ``flush()``: micro-batches accumulate across
   ``insert()`` calls and the flush pools their BFS residues across
   snapshot epochs.  ``consistency`` is ``"as-of-submit"`` (each query
   answered against the snapshot it observed) or ``"latest"``.
-
-Deletions and the lazy rebuild come in a later slice.
 
     python -m repro_torch.serve.reach_server [--device cuda|cpu] ...
 """
@@ -23,7 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.dbl import DBLIndex, not_ported
+from repro_torch.core import graph as G
+from repro_torch.core.dbl import DBLIndex
 from repro_torch.serve.engine import QueryEngine
 
 
@@ -33,16 +35,25 @@ class ServeStats:
     label_answered: int = 0
     bfs_answered: int = 0
     inserts: int = 0
+    deletes: int = 0
+    rebuilds: int = 0
+    delta_rebuilds: int = 0
     flushes: int = 0
     query_s: float = 0.0
     insert_s: float = 0.0
+    delete_s: float = 0.0
+    rebuild_s: float = 0.0
     flush_s: float = 0.0
 
     def as_dict(self):
         rho = self.label_answered / max(self.queries, 1)
         return {"queries": self.queries, "rho": rho,
-                "inserts": self.inserts, "flushes": self.flushes,
+                "inserts": self.inserts, "deletes": self.deletes,
+                "rebuilds": self.rebuilds,
+                "delta_rebuilds": self.delta_rebuilds,
+                "flushes": self.flushes,
                 "query_s": self.query_s, "insert_s": self.insert_s,
+                "delete_s": self.delete_s, "rebuild_s": self.rebuild_s,
                 "flush_s": self.flush_s}
 
 
@@ -52,14 +63,24 @@ def _sync(device: torch.device) -> None:
 
 
 class ReachabilityServer:
-    """Serving over one engine: ``query``, ``submit``/``flush``/``poll``
-    and ``insert`` (Alg 3; the pipeline rides across it).  The engine is
-    built here from the knobs, or passed in ready-made."""
+    """Serving over one engine: ``query``, ``submit``/``flush``/``poll``,
+    ``insert`` (Alg 3; the pipeline rides across it), ``delete``
+    (tombstones; in-flight submits drain first) and ``rebuild``.  The
+    engine is built here from the knobs, or passed in ready-made.
+
+    ``rebuild_dead_ratio`` is the laziness knob: once the tombstones reach
+    that fraction of the live edge count, a rebuild is scheduled and runs
+    at the next flush or query boundary, not inside ``delete``; ``None``
+    rebuilds only when asked.  The live count, not the edge prefix ``m``
+    that includes the tombstones, is the denominator.  ``rebuild_mode`` is
+    passed to ``DBLIndex.rebuild``."""
 
     def __init__(self, index: DBLIndex | None, *, bfs_chunk: int = 256,
                  max_iters: int = 256, backend: str = "auto",
                  engine: QueryEngine | None = None,
                  consistency: str = "as-of-submit",
+                 rebuild_dead_ratio: float | None = 0.25,
+                 rebuild_mode: str = "auto",
                  flush_policy: str | None = None,
                  flush_deadline_ms: float = 25.0,
                  flush_watermark: int = 256, device=None):
@@ -81,8 +102,15 @@ class ReachabilityServer:
                 flush_watermark=flush_watermark, device=device)
         if self.engine.index is None:
             raise ValueError("server needs an index (directly or via engine)")
+        if rebuild_dead_ratio is not None and not 0 < rebuild_dead_ratio <= 1:
+            raise ValueError("rebuild_dead_ratio must be in (0, 1] or None")
+        if rebuild_mode not in ("full", "delta", "auto"):
+            raise ValueError(f"unknown rebuild mode {rebuild_mode!r}")
+        self.rebuild_dead_ratio = rebuild_dead_ratio
+        self.rebuild_mode = rebuild_mode
         self.stats = ServeStats()
         self._pending = []
+        self._rebuild_due = False
 
     @property
     def index(self) -> DBLIndex:
@@ -92,7 +120,12 @@ class ReachabilityServer:
     def epoch(self) -> int:
         return self.engine.epoch
 
+    @property
+    def dirty(self) -> bool:
+        return self.engine.index.is_dirty
+
     def query(self, u, v) -> np.ndarray:
+        self._maybe_rebuild()
         t = time.perf_counter()
         ans, info = self.engine.query(np.asarray(u, np.int32),
                                       np.asarray(v, np.int32),
@@ -116,7 +149,8 @@ class ReachabilityServer:
 
     def flush(self, *, consistency: str | None = None) -> list:
         """Resolve every outstanding micro-batch in one epoch-coalesced
-        dispatch sequence; returns their answers in submission order."""
+        dispatch sequence; returns their answers in submission order.  A
+        scheduled lazy rebuild runs here, after the resolution."""
         t = time.perf_counter()
         pending = self._pending
         outs = self.engine.flush(pending, consistency=consistency)
@@ -127,6 +161,7 @@ class ReachabilityServer:
             self.stats.queries += len(ans)
             self.stats.bfs_answered += pend.nu
             self.stats.label_answered += len(ans) - pend.nu
+        self._maybe_rebuild()
         return outs
 
     def poll(self) -> bool:
@@ -145,10 +180,42 @@ class ReachabilityServer:
         self.stats.inserts += len(np.asarray(src))
 
     def delete(self, src, dst):
-        raise not_ported("ReachabilityServer.delete", "queue 1, item 11")
+        """Tombstone matching live edges and go dirty, without label
+        recomputation.  Drains in-flight submits (``QueryEngine.delete``),
+        then schedules a lazy rebuild if the tombstone ratio reached
+        ``rebuild_dead_ratio``."""
+        t = time.perf_counter()
+        idx = self.engine.delete(np.asarray(src, np.int32),
+                                 np.asarray(dst, np.int32))
+        _sync(self.engine.device)
+        self.stats.delete_s += time.perf_counter() - t
+        self.stats.deletes += len(np.asarray(src))
+        if self.rebuild_dead_ratio is not None and not self._rebuild_due:
+            dead = int(G.dead_edge_count(idx.graph))
+            live = max(idx.graph.m - dead, 1)
+            if dead / live >= self.rebuild_dead_ratio:
+                self._rebuild_due = True
 
     def rebuild(self, **build_kw):
-        raise not_ported("ReachabilityServer.rebuild", "queue 1, item 11")
+        """Rebuild the labels over the live edge set now (clears the dirty
+        state, compacts tombstones, re-binds the engine after resolving
+        in-flight submits).  ``mode`` defaults to ``rebuild_mode``."""
+        build_kw.setdefault("mode", self.rebuild_mode)
+        t = time.perf_counter()
+        idx = self.engine.rebuild(**build_kw)
+        _sync(self.engine.device)
+        self.stats.rebuild_s += time.perf_counter() - t
+        self.stats.rebuilds += 1
+        if self.engine.last_rebuild_info["mode"] == "delta":
+            self.stats.delta_rebuilds += 1
+        self._rebuild_due = False
+        # queued pendings were resolved by the re-bind's drain; they stay
+        # queued so the next flush() still returns their answers in order
+        return idx
+
+    def _maybe_rebuild(self):
+        if self._rebuild_due:
+            self.rebuild()
 
     def engine_stats(self) -> dict:
         d = self.engine.stats.as_dict()
@@ -156,6 +223,10 @@ class ReachabilityServer:
         d["device"] = str(self.engine.device)
         d["epoch"] = self.engine.epoch
         d["consistency"] = self.engine.consistency
+        d["dirty"] = self.dirty
+        d["rebuild_due"] = self._rebuild_due
+        d["rebuild_mode"] = self.rebuild_mode
+        d["last_rebuild"] = self.engine.last_rebuild_info
         d["flush_policy"] = self.engine.flush_policy
         return d
 

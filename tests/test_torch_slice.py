@@ -198,8 +198,24 @@ def test_server_three_rounds_match():
         assert getattr(ts.engine.stats, key) == \
             getattr(js.engine.stats, key), key
     assert ts.engine_stats()["epoch"] == js.engine_stats()["epoch"] == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.delete(np.zeros(1, np.int32), np.zeros(1, np.int32))
+    # a delete, then a query on the dirty index, as the reference serves it
+    js.delete(src[:30], dst[:30])
+    ts.delete(src[:30], dst[:30])
+    u = rng.integers(0, n, 400).astype(np.int32)
+    v = rng.integers(0, n, 400).astype(np.int32)
+    a = js.query(u, v)
+    b = ts.query(u, v)
+    np.testing.assert_array_equal(np.asarray(a), b)
+    es, ed = np.asarray(es), np.asarray(ed)
+    dead = np.isin(es.astype(np.int64) * n + ed,
+                   src[:30].astype(np.int64) * n + dst[:30])
+    np.testing.assert_array_equal(b, reach_oracle(n, es[~dead],
+                                                  ed[~dead])[u, v])
+    # the duplicate pairs of this power-law graph die too: the tombstones
+    # pass the default rebuild_dead_ratio and the query ran after the lazy
+    # rebuild on both sides
+    for key in ("dirty", "rebuild_due", "last_rebuild"):
+        assert ts.engine_stats()[key] == js.engine_stats()[key], key
 
 
 def test_numpy_round_trips_with_jax_index():
@@ -316,7 +332,6 @@ def test_engine_flush_policies():
                                                 batches[0][1]])
     with pytest.raises(ValueError):
         TEngine(tidx, flush_policy="sometimes")
-    for kw in (dict(streaming=True), dict(plane_repr="packed"),
-               dict(frontier_dtype="packed")):
+    for kw in (dict(plane_repr="packed"), dict(frontier_dtype="packed")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(tidx, **kw)
