@@ -8,10 +8,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 1. device: CUDA must be present; prints the card's name and power limit.
 2. build: compiles the four CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
-   together).
+   together) and prints the admit kernels' registers and spills per
+   template instance (``-Xptxas -v``).
 3. parity: each kernel against its plain PyTorch version on the card over
-   a sweep of ragged shapes, word counts, cutoffs, interval planes and
-   output types, and each streamed kernel against its grid twin as well;
+   a sweep of ragged shapes, word counts (every compile-time width of the
+   admit kernels' tile, W = 1..4, and a run-time width), cutoffs,
+   interval planes and output types, and each streamed kernel against its
+   grid twin as well; the admit kernels also on label planes at a 4-byte
+   offset (scalar loads, the ring filled by 4-byte copies) and at every
+   width pair W_bl, W_dl in 1..4 with Q = 8 and 37 (both lane counts);
    bitwise equality is required.  Then each kernel's time, its plain
    version's time and its least possible time (bound) at the main path's
    shapes.
@@ -66,6 +71,9 @@ LABEL_Q = -(-QUERIES // BFS_CHUNK) * BFS_CHUNK
 #: the coalesced phase's chunk sizes: the engine's buckets up to bfs_chunk
 CHUNK_QS = (16, 32, 64)
 LJ_N = 60_000
+#: the widest admit plane of the parity sweep: more lane groups than a
+#: block of either admit kernel has threads
+ADMIT_MAX_Q = 2_500
 #: the dynamic phase: deleted live edges per round and the server's
 #: tombstone ratio (850 of the LJ preset's 850 000 edges)
 DELETES = 500
@@ -163,9 +171,15 @@ def parity_sweep(dev):
         (40, 96, "md", True, torch.int32),
         (64, 64, "m", True, torch.int8),
         (96, 40, "none", True, torch.int32),
+        (128, 128, "md", False, torch.int8),  # W = 4
+        (128, 32, "m", False, torch.int32),   # W_bl = 4, W_dl = 1
+        (160, 64, "md", False, torch.int8),   # the run-time-width tile
     ]
+    # Q = 2 and 8, Q % 8 == 4 (36) and ragged Q (37) at n = 60 000, and a
+    # Q with more lane groups than a block has threads (2 500: two slabs)
     shapes = [(1, 1), (37, 37), (513, 513), (37, LJ_N), (LJ_N, 1),
-              (LJ_N, 37), (LJ_N, 513), (LJ_N, LABEL_Q),
+              (LJ_N, 2), (LJ_N, 8), (LJ_N, 36), (LJ_N, 37), (LJ_N, 513),
+              (1000, ADMIT_MAX_Q), (LJ_N, LABEL_Q),
               *((LJ_N, q) for q in CHUNK_QS)]
     names = ("verdicts_kernel", "admit_kernel", "streamed_verdicts_kernel",
              "streamed_admit_kernel")
@@ -187,6 +201,32 @@ def parity_sweep(dev):
             if err or got.dtype != want.dtype or got.shape != want.shape:
                 raise AssertionError(f"{name} disagrees: {what}")
         cases += 1
+
+    def offset(t):
+        """t in storage at a 4-byte offset: no longer 16-byte aligned."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:].copy_(t.reshape(-1))
+        return buf[1:].view(t.shape)
+
+    def admit_cases(p, u, v, cuts, what):
+        """Both admit kernels against admit_plain and each other, on the
+        planes as made (vector loads, 16-byte ring copies) and at a 4-byte
+        offset (scalar loads, 4-byte ring copies); the streamed kernel at
+        its default chunk and at one that divides no n of the sweep."""
+        rows = freshness_rows(**cuts)
+        fresh = None if rows is None else rows.all(0).to(torch.int32)
+        planes = (p.bl_in, p.bl_out, p.dl_in, p.dl_out)
+        plain = admit_plain(*planes, u, v, **cuts)
+        plain_s = admit_streamed_plain(*planes, u, v, fresh)
+        for moved in (False, True):
+            args = (*(map(offset, planes) if moved else planes), u, v)
+            at = f"{what} offset={moved}"
+            grid = bfs_admit_plane(*args, **cuts)
+            hold("admit_kernel", grid, plain, what=at)
+            for nb in (None, 36):
+                hold("streamed_admit_kernel",
+                     bfs_admit_plane_streamed(*args, **cuts, n_block=nb),
+                     plain_s, grid, what=f"{at} n_block={nb}")
 
     for n, q in shapes:
         for k, kp, cut, il, out_dtype in variants:
@@ -230,19 +270,22 @@ def parity_sweep(dev):
                                                  out_dtype=out_dtype),
                      verdicts_streamed_plain(*p, u, v, rows, out_dtype),
                      grid, what=what)
-            if q > 513:
-                continue
-            args = (p.bl_in, p.bl_out, p.dl_in, p.dl_out, u, v)
-            grid = bfs_admit_plane(*args, **cuts)
-            hold("admit_kernel", grid, admit_plain(*args, **cuts), what=what)
-            rows = freshness_rows(**cuts)
-            fresh = None if rows is None else rows.all(0).to(torch.int32)
-            plain = admit_streamed_plain(*args, fresh)
-            # the default chunk and one that divides no n of the sweep
-            for nb in (None, 36):
-                hold("streamed_admit_kernel",
-                     bfs_admit_plane_streamed(*args, **cuts, n_block=nb),
-                     plain, grid, what=f"{what} n_block={nb}")
+            if q <= ADMIT_MAX_Q:
+                admit_cases(p, u, v, cuts, what)
+    # every width pair the tile compiles, at Q = 8 (the grid kernel's 8
+    # lanes a thread where 2*W_bl + W_dl <= 6, 64-bit stores) and Q = 37
+    # (4 lanes, bytes); the sweep above adds the run-time width
+    for wb in range(1, 5):
+        for wd in range(1, 5):
+            for q in (8, 37):
+                p = random_planes(rng, 1000, 32 * wb, 32 * wd, dev)
+                u, v = ids(q, 1000), ids(q, 1000)
+                cuts = dict(m_cut=torch.from_numpy(rng.integers(
+                    90, 110, q).astype(np.int32)).to(dev), m_total=100,
+                    d_cut=torch.from_numpy(rng.integers(
+                        0, 3, q).astype(np.int32)).to(dev), d_total=1)
+                admit_cases(p, u, v, cuts,
+                            f"n=1000 q={q} W_bl={wb} W_dl={wd} cut=md")
     return worst, cases
 
 
@@ -354,6 +397,18 @@ def timed(name, shape, kernel, plain, nbytes, ops):
                 plain_ms=plain_ms, plain_host_loop_ms=plain_host_ms,
                 bytes=nbytes, ops=ops, bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def ptxas_summary(report):
+    """{kernel<tile instance>: [registers, spill store bytes, spill load
+    bytes]} from ``_build.ptxas_report``, names cut to the template."""
+    out = {}
+    for fn, r in report.items():
+        short = fn.split("(admit::Planes")[0].replace(
+            "void (anonymous namespace)::", "").replace("admit::", "")
+        out[short] = [r.get("registers"), r.get("spill_stores"),
+                      r.get("spill_loads")]
+    return out
 
 
 def host_reach(n, src, dst, sources):
@@ -710,6 +765,8 @@ def main():
     emit("build", seconds=time.perf_counter() - t,
          libs=[str(_build.library_path(n).relative_to(ROOT))
                for n in _build.SIGNATURES])
+    emit("ptxas", **{name: ptxas_summary(_build.ptxas_report(name))
+                     for name in ("bfs_prune", "bfs_prune_streamed")})
 
     worst, cases = parity_sweep(dev)
     emit("parity", cases=cases, max_abs_err=worst, bitwise=True)

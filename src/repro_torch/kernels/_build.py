@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain ``extern "C"`` interface, written to
-``build/repro_torch_kernels/<hash of the source>/lib<name>.so`` at the root
-of the checkout, and is loaded with ``ctypes``.  Nothing is built when a
+``build/repro_torch_kernels/<hash>/lib<name>.so`` at the root of the
+checkout (the hash covers the source, every ``csrc/*.cuh`` header it may
+include and the flags), and is loaded with ``ctypes``.  The compiler's
+``-Xptxas -v`` report (registers and spills per kernel instance) is kept
+beside it as ``lib<name>.log`` (``ptxas_report``).  Nothing is built when a
 module is imported: the CPU never needs the libraries.
 """
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,9 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: entry points of each library with their (argument types, result type),
 #: set once at load: device pointers and the stream are ``c_void_p``,
@@ -34,18 +38,16 @@ SIGNATURES = {
         [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
          _P, _I, _P], _I)},
     "bfs_prune": {"bfs_admit_plane": (
-        [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P],
-        _I)},
+        [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P,
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)},
     "dbl_query_streamed": {
         "dbl_query_verdicts_streamed": (
             [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P],
             _I),
         "dbl_query_streamed_smem_bytes": ([_I, _I], _I)},
-    "bfs_prune_streamed": {
-        "bfs_admit_plane_streamed": (
-            [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P],
-            _I),
-        "bfs_prune_streamed_smem_bytes": ([_I, _I, _I, _I], _L)},
+    "bfs_prune_streamed": {"bfs_admit_plane_streamed": (
+        [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P,
+         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)},
 }
 
 #: shared memory a block may take on Hopper (227 KB), see the opt-in in
@@ -64,8 +66,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: a directory named by the hash of
+    the flags, the source and every header under ``csrc/``, so that an
+    edit to a shared header rebuilds each library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 
 
@@ -92,6 +98,7 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)   # atomic: a concurrent build sees all or none
 
 
@@ -116,6 +123,33 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, entry).restype = restype
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes per kernel function of the built library
+    ``lib<name>.so``, read from the compiler's ``-Xptxas -v`` log (mangled
+    names, demangled by ``c++filt`` where it is on the PATH)."""
+    log = library_path(name).with_suffix(".log").read_text()
+    out: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                    r"bytes spill loads", line)):
+            out[fn].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            out[fn]["registers"] = int(m.group(1))
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(out), text=True,
+                               capture_output=True).stdout.splitlines()
+        if len(names) == len(out):
+            out = dict(zip(names, out.values()))
+    return out
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

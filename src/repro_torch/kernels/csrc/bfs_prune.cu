@@ -11,86 +11,89 @@
 // d_cut[q] < d_total.  Output (n_cap, Q) int8, row-major like the
 // reference's plane.  The interval-family AND stays outside the kernel.
 //
-// Each block owns a tile of NB vertices × all Q lanes, which is one
-// contiguous NB*Q-byte span of the output.  It gathers the lanes'
-// query-side words (BL_in(v_q), BL_out(v_q), DL_out(u_q), by u/v inside the
-// kernel) and the per-lane freshness bit into shared memory once, and
-// stages the tile's vertex words beside them with coalesced loads.  Threads
-// then walk the tile's NB*Q outputs in order, so consecutive threads take
-// consecutive lanes: the int8 stores are coalesced and the vertex words a
-// warp reads come from one or two shared-memory words (broadcasts).
-//
 // Bound: integer operations at the serving shapes.  Each output byte
-// takes about 2*Wb + Wd + 2 integer operations (one 3-input logic op per
-// word and test, then the combine), which on the H100's INT32 lanes take
-// longer than writing the byte; bytes (the n*Q output plus one read of the
-// three vertex planes) bound only small Q.
+// takes 2*Wb + Wd + 2 integer operations (one 3-input logic op per word
+// and test, then the compare and the pack), which on the H100's INT32
+// lanes take longer than writing the byte; bytes (the n*Q output plus one
+// read of the three vertex planes) bound only small Q.
+//
+// Design (the tile is csrc/admit_tile.cuh, shared with the streamed
+// kernel): a grid-stride walk over vertex rows, two blocks per SM.  Each
+// block stages its lanes' query-side words in shared memory, one lane a
+// thread (two dependent loads: the ids, then the rows), with the
+// freshness gate folded into the DL words; each thread then copies its
+// L lanes' words into registers.  Every thread keeps D = 3 of its rows'
+// words in flight (the first ones across the staging), so a row's loads
+// are issued three rows before it computes; it writes each row's L bytes
+// with one packed store.  A Q wider than a block's lane groups takes a
+// second grid axis (blockIdx.y) over lane slabs.  What still holds it
+// back is the lane staging: every block reads the same Q lanes' rows, so
+// those few L2 sectors are hot while all blocks start.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "admit_tile.cuh"
+
 namespace {
 
-__device__ __forceinline__ int clamp_id(int x, int n) {
-  return x < 0 ? 0 : (x >= n ? n - 1 : x);
+constexpr int MAX_THREADS = 256;
+
+// Rows in flight per thread: a row's words load D rows before it computes.
+constexpr int D = 3;
+
+template <bool VEC, class Tile>
+__device__ __forceinline__ void admit_rows(
+    const admit::Planes& P, const int* u, const int* v, int q,
+    const admit::CutFresh& fresh, const admit::Geometry& g, int* lanes_s,
+    int8_t* out) {
+  constexpr int L = Tile::kLanes;
+  const int stride = g.span * L;            // lanes this block stages
+  const int l0 = blockIdx.y * stride;
+  const int gl = threadIdx.x % g.span;
+  const int lane0 = l0 + gl * L;
+  const int step = gridDim.x * g.rows;
+  int x = blockIdx.x * g.rows + threadIdx.x / g.span;
+  const bool on = threadIdx.x / g.span < g.rows && lane0 < q &&
+                  x < P.n_cap;
+  Tile t;
+  typename Tile::Row ring[D];   // rows x, x + step, ... (clamped to n_cap)
+  if (on) {                     // in flight across the staging
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+      ring[i] = t.template load_global<VEC>(
+          P, min(x + i * step, P.n_cap - 1));
+  }
+  Tile::stage(lanes_s, stride, P, u, v, l0, min(stride, q - l0), fresh,
+              g.vec);
+  __syncthreads();
+  if (!on) return;
+  t.load_lanes(P, lanes_s, stride, gl * L);
+  for (;;) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      uint32_t w[L / 4];
+      t.admit(ring[i], w);
+      admit::store_bytes<L>(out + (size_t)x * q + lane0, w, q - lane0,
+                            g.pack);
+      // unconditional (clamped), so the loads issue ahead of the compute
+      ring[i] = t.template load_global<VEC>(
+          P, min(x + D * step, P.n_cap - 1));
+      x += step;
+      if (x >= P.n_cap) return;
+    }
+  }
 }
 
-__global__ void admit_kernel(
-    const int* __restrict__ bl_in, const int* __restrict__ bl_out, int wb,
-    const int* __restrict__ dl_in, const int* __restrict__ dl_out, int wd,
-    int n_cap, const int* __restrict__ u, const int* __restrict__ v, int q,
-    const int* __restrict__ m_cut, int m_total,
-    const int* __restrict__ d_cut, int d_total, int nb,
+template <class Tile>
+__global__ void __launch_bounds__(MAX_THREADS) admit_kernel(
+    admit::Planes P, const int* __restrict__ u, const int* __restrict__ v,
+    int q, admit::CutFresh fresh, admit::Geometry g,
     int8_t* __restrict__ out) {
-  extern __shared__ int smem[];
-  const int nw = 2 * wb + wd;   // words per row: BL_in | BL_out | DL
-  int* qw = smem;               // [nw][q]  lane words
-  int* fresh = qw + nw * q;     // [q]      DL term on for this lane
-  int* xw = fresh + q;          // [nw][nb] vertex words of the tile
-
-  for (int l = threadIdx.x; l < q; l += blockDim.x) {
-    const size_t uu = clamp_id(u[l], n_cap), vv = clamp_id(v[l], n_cap);
-    for (int w = 0; w < wb; ++w) {
-      qw[w * q + l] = bl_in[vv * wb + w];
-      qw[(wb + w) * q + l] = bl_out[vv * wb + w];
-    }
-    for (int w = 0; w < wd; ++w) qw[(2 * wb + w) * q + l] = dl_out[uu * wd + w];
-    bool on = true;
-    if (m_cut != nullptr) {
-      on = m_cut[l] >= m_total;
-      if (d_cut != nullptr) on = on && d_cut[l] >= d_total;
-    }
-    fresh[l] = on;
-  }
-  const int x0 = blockIdx.x * nb;
-  const int nx = min(nb, n_cap - x0);
-  for (int e = threadIdx.x; e < nx * wb; e += blockDim.x) {
-    const int xl = e / wb, w = e % wb;
-    xw[w * nb + xl] = bl_in[(size_t)(x0 + xl) * wb + w];
-    xw[(wb + w) * nb + xl] = bl_out[(size_t)(x0 + xl) * wb + w];
-  }
-  for (int e = threadIdx.x; e < nx * wd; e += blockDim.x) {
-    const int xl = e / wd, w = e % wd;
-    xw[(2 * wb + w) * nb + xl] = dl_in[(size_t)(x0 + xl) * wd + w];
-  }
-  __syncthreads();
-
-  int8_t* tile = out + (size_t)x0 * q;
-  for (int e = threadIdx.x; e < nx * q; e += blockDim.x) {
-    const int xl = e / q, l = e % q;
-    bool ok = true;
-    for (int w = 0; w < wb; ++w) {
-      const int bix = xw[w * nb + xl], box = xw[(wb + w) * nb + xl];
-      const int biv = qw[w * q + l], bov = qw[(wb + w) * q + l];
-      ok &= ((bix & ~biv) == 0) & ((bov & ~box) == 0);
-    }
-    if (fresh[l]) {
-      bool d = false;
-      for (int w = 0; w < wd; ++w)
-        d |= (qw[(2 * wb + w) * q + l] & xw[(2 * wb + w) * nb + xl]) != 0;
-      ok &= !d;
-    }
-    tile[e] = ok ? 1 : 0;
-  }
+  extern __shared__ __align__(16) int lanes_s[];
+  if (g.vec)
+    admit_rows<true, Tile>(P, u, v, q, fresh, g, lanes_s, out);
+  else
+    admit_rows<false, Tile>(P, u, v, q, fresh, g, lanes_s, out);
 }
 
 }  // namespace
@@ -100,27 +103,29 @@ extern "C" const char* repro_cuda_error_string(int err) {
 }
 
 // All pointers are device pointers; m_cut and d_cut may be NULL (d_cut
-// needs m_cut).  out is (n_cap, q) int8.  Returns cudaGetLastError() after
-// the launch (or the error of the shared-memory opt-in).
+// needs m_cut).  out is (n_cap, q) int8.  The launch geometry (lanes per
+// thread, the Geometry fields, threads and blocks per grid row) comes from
+// the wrapper (`admit_geometry` in kernels/bfs_prune/bfs_prune.py).
+// Returns cudaGetLastError() after the launch.
 extern "C" int bfs_admit_plane(
     const int* bl_in, const int* bl_out, int wb,
     const int* dl_in, const int* dl_out, int wd, int n_cap,
     const int* u, const int* v, int q,
     const int* m_cut, int m_total, const int* d_cut, int d_total,
-    int8_t* out, void* stream) {
-  const int threads = 256;
-  int nb = 4096 / q;
-  nb = nb < 1 ? 1 : (nb > 256 ? 256 : nb);
-  const int nw = 2 * wb + wd;
-  const size_t smem = sizeof(int) * ((size_t)nw * (q + nb) + q);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        admit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (n_cap + nb - 1) / nb;
-  admit_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      bl_in, bl_out, wb, dl_in, dl_out, wd, n_cap, u, v, q, m_cut, m_total,
-      d_cut, d_total, nb, out);
-  return static_cast<int>(cudaGetLastError());
+    int8_t* out, int lanes, int groups, int span, int rows, int slabs,
+    int pack, int vec, int threads, int blocks, int smem, void* stream) {
+  const admit::Planes P{bl_in, bl_out, dl_in, dl_out, wb, wd, n_cap};
+  const admit::CutFresh fresh{m_cut, m_total, d_cut, d_total};
+  const admit::Geometry g{groups, span, rows, slabs, 0, pack, vec};
+  return admit::dispatch<true>(wb, wd, lanes, [&](auto tile) {
+    auto kernel = admit_kernel<decltype(tile)>;
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<dim3(blocks, slabs), threads, static_cast<size_t>(smem),
+             static_cast<cudaStream_t>(stream)>>>(P, u, v, q, fresh, g, out);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -8,137 +8,126 @@
 //                 ∧ ¬(fresh_q ∧ DL_out(u_q) ∩ DL_in(x) ≠ ∅)
 //
 // the same (n_cap, Q) int8 plane as `admit_kernel` (csrc/bfs_prune.cu),
-// bitwise, with the vertex axis streamed.  `fresh` is the one pre-combined
-// 0/1 freshness row of the TPU wrapper ((m_cut >= m_total) ∧ (d_cut >=
-// d_total)), or NULL for no cutoff.  The interval-family AND stays outside.
-//
-// Persistent blocks, about one per SM.  Each block gathers the lane side
-// once into shared memory (BL_in(v_q), BL_out(v_q), DL_out(u_q) words and
-// the freshness bit for all Q lanes; there is no q_block, one tile spans
-// every lane) and then walks vertex chunks c = blockIdx.x, blockIdx.x +
-// gridDim.x, ... of NB rows.  In the row-major (n_cap, W) int32 planes a
-// chunk of rows is one contiguous span per plane, so its three spans are
-// copied into a two-stage shared-memory ring with cp.async (16-byte copies
-// where the span is aligned, <cuda_pipeline.h>), the next chunk's copy in
-// flight while the current one computes.  Each chunk's (NB, Q) output is
-// one contiguous span of the plane: a group of G threads (G = Q rounded up
-// to a power of two, at most 32) takes one vertex row, so consecutive
-// threads store consecutive bytes and a group reads its vertex words as
-// shared-memory broadcasts.  The last chunk's ragged rows are masked.
-//
-// Shared memory: (2*Wb + Wd) * Q + Q words of lane side plus a ring of
-// 2 * NB * (2*Wb + Wd) words; the wrapper checks it against the card's
-// 227 KB before the launch and the entry point opts in above 48 KB.
+// bitwise, through the same tile (csrc/admit_tile.cuh), with the vertex
+// axis streamed.  `fresh` is the one pre-combined 0/1 freshness row of the
+// TPU wrapper ((m_cut >= m_total) ∧ (d_cut >= d_total)), or NULL for no
+// cutoff.  The interval-family AND stays outside.
 //
 // Bound: integer operations at the serving shapes, as for `admit_kernel`:
-// about 2*Wb + Wd + 2 operations per output byte against one byte written.
+// 2*Wb + Wd + 2 operations per output byte against one byte written.
+//
+// Design: persistent blocks, about one per SM, walk work items
+// it = blockIdx.x, blockIdx.x + gridDim.x, ...; item it is vertex chunk
+// it % nchunks of lane slab it / nchunks (one slab unless Q has more lane
+// groups than fit a block).  A block stages its slab's lane side in shared
+// memory (one lane a thread, freshness folded into the DL words, as the
+// grid kernel does) and each thread copies its L lanes' words into
+// registers.  In the row-major (n_cap, W) int32 planes a chunk of NB rows
+// is one contiguous span per plane; its three spans go into a two-stage
+// shared-memory ring, the next item's copy in flight while the current one
+// computes.  The block's threads fill a stage with `cp.async`, 16 bytes a
+// copy where a span is 16-byte aligned, 4 bytes for the rest (unaligned
+// planes, a ragged tail).  Each thread walks the rows r, r + rows, ... of
+// a chunk, reading a row's words from the ring (vector loads, broadcasts
+// within the row's threads) and writing its L bytes with one packed
+// store.  NB spreads n_cap over the blocks (one chunk each up to
+// 132 * 1024 rows): a chunk's barriers cost more than the overlap of a
+// second chunk buys at the serving sizes, so the ring overlaps chunks
+// only beyond that.  A one-thread bulk copy (TMA, with an mbarrier) in
+// place of the per-thread copies timed within 3 % of them at the LJ size
+// and was taken out.
+//
+// Dynamic shared memory: the lane side ((2*Wb + Wd) words for each of the
+// slab's lanes), then the ring of 2 * NB * (2*Wb + Wd) words (the wrapper
+// sizes it and checks it against the card's 227 KB; the entry point opts
+// in above 48 KB).
 #include <cstdint>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "admit_tile.cuh"
+
 namespace {
 
-constexpr int THREADS = 512;
+constexpr int MAX_THREADS = 512;
 
-__device__ __forceinline__ int clamp_id(int x, int n) {
-  return x < 0 ? 0 : (x >= n ? n - 1 : x);
-}
-
-__host__ __device__ __forceinline__ int lane_words(int nw, int q) {
-  return (nw * q + q + 3) & ~3;   // 16-byte aligned start of the ring
-}
-
-// Copy nwords contiguous words global -> shared asynchronously, spread
-// over the block's threads; dst is 16-byte aligned.
-__device__ __forceinline__ void copy_span(int* dst, const int* src,
-                                          int nwords) {
-  int done = 0;
+// nwords words global -> shared by the block's threads with cp.async:
+// 16-byte copies where src is 16-byte aligned (dst always is), else 4.
+__device__ __forceinline__ void copy_words(int* dst, const int* src,
+                                           int nwords) {
+  int from = 0;
   if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     const int n16 = nwords >> 2;
     for (int i = threadIdx.x; i < n16; i += blockDim.x)
       __pipeline_memcpy_async(dst + 4 * i, src + 4 * i, 16);
-    done = n16 << 2;
+    from = n16 << 2;
   }
-  for (int i = done + threadIdx.x; i < nwords; i += blockDim.x)
+  for (int i = from + threadIdx.x; i < nwords; i += blockDim.x)
     __pipeline_memcpy_async(dst + i, src + i, sizeof(int));
 }
 
-__global__ void __launch_bounds__(THREADS) streamed_admit_kernel(
-    const int* __restrict__ bl_in, const int* __restrict__ bl_out, int wb,
-    const int* __restrict__ dl_in, const int* __restrict__ dl_out, int wd,
-    int n_cap, const int* __restrict__ u, const int* __restrict__ v, int q,
-    const int* __restrict__ fresh, int nb, int8_t* __restrict__ out) {
+template <class Tile>
+__global__ void __launch_bounds__(MAX_THREADS) streamed_admit_kernel(
+    admit::Planes P, const int* __restrict__ u, const int* __restrict__ v,
+    int q, admit::RowFresh fresh, admit::Geometry g,
+    int8_t* __restrict__ out) {
+  constexpr int L = Tile::kLanes;
   extern __shared__ __align__(16) int smem[];
-  const int nw = 2 * wb + wd;
-  // lane side: [nw][q] words BL_in(v), BL_out(v), DL_out(u), then [q]
-  // freshness; then the ring, 2 x [BL_in | BL_out | DL_in rows]
-  int* qw = smem;
-  int* fr = qw + nw * q;
-  int* ring = smem + lane_words(nw, q);
-  const int sw = nb * nw;
-  const int nchunks = (n_cap + nb - 1) / nb;
+  const int wb = P.wb, wd = P.wd, nb = g.n_block;
+  const int stride = g.span * L;            // lanes of a slab
+  int* lanes_s = smem;
+  int* ring = lanes_s + (2 * wb + wd) * stride;
+  const int sw = nb * (2 * wb + wd);        // words per ring stage
+  const int nchunks = (P.n_cap + nb - 1) / nb;
+  const int items = nchunks * g.slabs;
 
-  auto fetch = [&](int c, int s) {
-    const int x0 = c * nb;
-    const int nx = min(nb, n_cap - x0);
+  // Item it's three row spans into ring stage s.
+  auto fetch = [&](int it, int s) {
+    const int x0 = (it % nchunks) * nb;
+    const int nx = min(nb, P.n_cap - x0);
     int* dst = ring + s * sw;
-    copy_span(dst, bl_in + (size_t)x0 * wb, nx * wb);
-    copy_span(dst + nb * wb, bl_out + (size_t)x0 * wb, nx * wb);
-    copy_span(dst + 2 * nb * wb, dl_in + (size_t)x0 * wd, nx * wd);
+    copy_words(dst, P.bl_in + (size_t)x0 * wb, nx * wb);
+    copy_words(dst + nb * wb, P.bl_out + (size_t)x0 * wb, nx * wb);
+    copy_words(dst + 2 * nb * wb, P.dl_in + (size_t)x0 * wd, nx * wd);
   };
 
-  int c = blockIdx.x;
-  if (c < nchunks) fetch(c, 0);
+  const int r = threadIdx.x / g.span;
+  const int gl = threadIdx.x % g.span;
+  Tile t;
+  int slab = -1;
+
+  int it = blockIdx.x;
+  if (it < items) fetch(it, 0);
   __pipeline_commit();
-  for (int l = threadIdx.x; l < q; l += blockDim.x) {
-    const size_t uu = clamp_id(u[l], n_cap), vv = clamp_id(v[l], n_cap);
-    for (int w = 0; w < wb; ++w) {
-      qw[w * q + l] = bl_in[vv * wb + w];
-      qw[(wb + w) * q + l] = bl_out[vv * wb + w];
-    }
-    for (int w = 0; w < wd; ++w)
-      qw[(2 * wb + w) * q + l] = dl_out[uu * wd + w];
-    fr[l] = fresh == nullptr ? 1 : fresh[l];
-  }
-
-  // G threads per vertex row: Q rounded up to a power of two, at most 32
-  int gshift = 0;
-  while ((1 << gshift) < q && gshift < 5) ++gshift;
-  const int gsize = 1 << gshift;
-  const int gid = threadIdx.x >> gshift;
-  const int ngroups = blockDim.x >> gshift;
-  const int lig = threadIdx.x & (gsize - 1);
-
-  for (int j = 0; c < nchunks; ++j, c += gridDim.x) {
-    const int next = c + gridDim.x;
-    if (next < nchunks) fetch(next, (j + 1) & 1);
+  for (int j = 0; it < items; ++j, it += gridDim.x) {
+    const int next = it + gridDim.x;
+    if (next < items) fetch(next, (j + 1) & 1);
     __pipeline_commit();
-    __pipeline_wait_prior(1);   // this thread's copies of chunk c landed
+    const int sl = it / nchunks;
+    const int lane0 = sl * stride + gl * L;
+    const bool on = r < g.rows && lane0 < q;
+    const bool fresh_slab = sl != slab;
+    if (fresh_slab) {           // the lane side of a new slab (uniform)
+      Tile::stage(lanes_s, stride, P, u, v, sl * stride,
+                  min(stride, q - sl * stride), fresh, g.vec);
+      slab = sl;
+    }
+    __pipeline_wait_prior(1);   // this thread's cp.async of item it
     __syncthreads();            // ... and every other thread's
-    const int x0 = c * nb;
-    const int nx = min(nb, n_cap - x0);
+    if (on && fresh_slab) t.load_lanes(P, lanes_s, stride, gl * L);
+    const int x0 = (it % nchunks) * nb;
+    const int nx = min(nb, P.n_cap - x0);
     const int* s = ring + (j & 1) * sw;
-    int8_t* tile = out + (size_t)x0 * q;
-    for (int xl = gid; xl < nx; xl += ngroups) {
-      const int* xbi = s + xl * wb;
-      const int* xbo = s + nb * wb + xl * wb;
-      const int* xdi = s + 2 * nb * wb + xl * wd;
-      for (int l = lig; l < q; l += gsize) {
-        bool ok = true;
-        for (int w = 0; w < wb; ++w)
-          ok &= ((xbi[w] & ~qw[w * q + l]) == 0) &
-                ((qw[(wb + w) * q + l] & ~xbo[w]) == 0);
-        if (fr[l]) {
-          bool d = false;
-          for (int w = 0; w < wd; ++w)
-            d |= (qw[(2 * wb + w) * q + l] & xdi[w]) != 0;
-          ok &= !d;
-        }
-        tile[(size_t)xl * q + l] = ok ? 1 : 0;
+    if (on) {
+      for (int xl = r; xl < nx; xl += g.rows) {
+        uint32_t w[L / 4];
+        t.admit(t.load_shared(s, nb, xl), w);
+        admit::store_bytes<L>(out + (size_t)(x0 + xl) * q + lane0, w,
+                              q - lane0, g.pack);
       }
     }
-    __syncthreads();            // slot j & 1 is refilled at j + 1
-  }
+    __syncthreads();            // stage j & 1 is refilled at j + 1, and
+  }                             // the lane side restaged
 }
 
 }  // namespace
@@ -147,34 +136,31 @@ extern "C" const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Shared memory one block of the streamed admit kernel takes.
-extern "C" long long bfs_prune_streamed_smem_bytes(int wb, int wd, int q,
-                                                   int nb) {
-  const int nw = 2 * wb + wd;
-  return (static_cast<long long>(lane_words(nw, q)) +
-          2LL * nb * nw) * static_cast<long long>(sizeof(int));
-}
-
 // All pointers are device pointers; fresh is (q,) int32 0/1 or NULL.  out
-// is (n_cap, q) int8.  nb is the chunk's row count (a multiple of 4) and
-// blocks the number of persistent blocks.  Returns the error of the
-// shared-memory opt-in or cudaGetLastError() after the launch.
+// is (n_cap, q) int8.  The launch geometry (lanes per thread, the Geometry
+// fields, threads, persistent blocks and the shared memory they take)
+// comes from the wrapper (`admit_geometry` in
+// kernels/bfs_prune/bfs_prune.py); n_block is a multiple of 4.  Returns
+// the error of the shared-memory opt-in or cudaGetLastError() after the
+// launch.
 extern "C" int bfs_admit_plane_streamed(
     const int* bl_in, const int* bl_out, int wb,
     const int* dl_in, const int* dl_out, int wd, int n_cap,
-    const int* u, const int* v, int q, const int* fresh, int nb,
-    int8_t* out, int blocks, void* stream) {
-  const long long smem = bfs_prune_streamed_smem_bytes(wb, wd, q, nb);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        streamed_admit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int nchunks = (n_cap + nb - 1) / nb;
-  if (blocks > nchunks) blocks = nchunks;
-  streamed_admit_kernel<<<blocks, THREADS, static_cast<size_t>(smem),
-                          static_cast<cudaStream_t>(stream)>>>(
-      bl_in, bl_out, wb, dl_in, dl_out, wd, n_cap, u, v, q, fresh, nb, out);
-  return static_cast<int>(cudaGetLastError());
+    const int* u, const int* v, int q, const int* fresh, int8_t* out,
+    int lanes, int groups, int span, int rows, int slabs, int n_block,
+    int pack, int vec, int threads, int blocks, int smem, void* stream) {
+  const admit::Planes P{bl_in, bl_out, dl_in, dl_out, wb, wd, n_cap};
+  const admit::RowFresh fr{fresh};
+  const admit::Geometry g{groups, span, rows, slabs, n_block, pack, vec};
+  return admit::dispatch<false>(wb, wd, lanes, [&](auto tile) {
+    auto kernel = streamed_admit_kernel<decltype(tile)>;
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<blocks, threads, static_cast<size_t>(smem),
+             static_cast<cudaStream_t>(stream)>>>(P, u, v, q, fr, g, out);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

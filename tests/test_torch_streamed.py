@@ -141,11 +141,12 @@ def test_streamed_wrappers_reject_bad_arguments():
         T_dbl.dbl_query_verdicts_streamed(*tp, u, u, m_cut=u)
     with pytest.raises(ValueError, match="out_dtype"):
         T_dbl.dbl_query_verdicts_streamed(*tp, u, u, out_dtype=torch.int16)
-    # the persistent grid's chunk: four chunks or more per block when n
-    # allows, within [32, 1024] rows
-    assert T_bfs.pick_n_block(60_000, 132) == 64
-    assert T_bfs.pick_n_block(10, 132) == 32
-    assert T_bfs.pick_n_block(10**8, 132) == 1024
+    # the persistent grid's chunk: n spread over the blocks, a multiple
+    # of 4 within [4, 1024] rows, smaller where the ring would not fit
+    assert T_bfs.pick_n_block(60_000, 132, 2, 2) == 456
+    assert T_bfs.pick_n_block(10, 132, 2, 2) == 4
+    assert T_bfs.pick_n_block(10**8, 132, 2, 2) == 1024
+    assert T_bfs.pick_n_block(10**8, 132, 40, 40) == 240
 
 
 def _il(rng, n):
