@@ -8,8 +8,8 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 1. device: CUDA must be present; prints the card's name and power limit.
 2. build: compiles the four CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
-   together) and prints the admit kernels' registers and spills per
-   template instance (``-Xptxas -v``).
+   together) and prints every kernel's registers and spills per template
+   instance (``-Xptxas -v``).
 3. parity: each kernel against its plain PyTorch version on the card over
    a sweep of ragged shapes, word counts (every compile-time width of the
    admit kernels' tile, W = 1..4, and a run-time width), cutoffs,
@@ -17,9 +17,14 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    grid twin as well; the admit kernels also on label planes at a 4-byte
    offset (scalar loads, the ring filled by 4-byte copies) and at every
    width pair W_bl, W_dl in 1..4 with Q = 8 and 37 (both lane counts);
-   bitwise equality is required.  Then each kernel's time, its plain
-   version's time and its least possible time (bound) at the main path's
-   shapes.
+   the verdict kernels at every width pair W_dl, W_bl in 1..4 with Q = 37
+   and 512, on planes as made and at a 4-byte offset (the scalar
+   instance, there with interval planes for the grid kernel), and the
+   streamed one at Q = 200 003 over n = 60 000, where every block walks
+   three or more chunks; bitwise equality is required.  Then each
+   kernel's time, its plain version's time and its least possible time
+   (bound) at the main path's shapes, and for each verdict shape the
+   launch floor: ``zero_`` of the same output, timed the same way.
 4. main path: the LJ preset at full size (n = 60 000, m = 850 000) is
    built with ``DBLIndex.build(k=64, k_prime=64, max_iters=64)`` and served
    by a ``ReachabilityServer`` over ``QueryEngine(bfs_chunk=64,
@@ -42,6 +47,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
 6. the ``kernels`` summary line, then the ``ok`` line last.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +80,9 @@ LJ_N = 60_000
 #: the widest admit plane of the parity sweep: more lane groups than a
 #: block of either admit kernel has threads
 ADMIT_MAX_Q = 2_500
+#: the verdict sweep's multi-chunk batch: more than three chunks for
+#: every persistent block of the streamed kernel
+MULTI_CHUNK_Q = 200_003
 #: the dynamic phase: deleted live edges per round and the server's
 #: tombstone ratio (850 of the LJ preset's 850 000 edges)
 DELETES = 500
@@ -154,9 +163,11 @@ def parity_sweep(dev):
     from repro_torch.kernels.bfs_prune.bfs_prune import (
         admit_plain, admit_streamed_plain, bfs_admit_plane,
         bfs_admit_plane_streamed)
+    from repro_torch.kernels import _build
     from repro_torch.kernels.dbl_query.dbl_query import (
         dbl_query_verdicts, dbl_query_verdicts_streamed, freshness_rows,
-        verdicts_plain, verdicts_streamed_plain)
+        streamed_verdicts_rows, verdict_geometry, verdicts_plain,
+        verdicts_streamed_plain)
     from repro_torch.kernels.dbl_query.ops import (StreamILFallbackWarning,
                                                    verdicts_device)
     from repro_torch.core.query import PackedLabels
@@ -228,6 +239,36 @@ def parity_sweep(dev):
                      bfs_admit_plane_streamed(*args, **cuts, n_block=nb),
                      plain_s, grid, what=f"{at} n_block={nb}")
 
+    def verdict_cases(p, u, v, cuts, what):
+        """Both verdict kernels against their plain versions, and the
+        streamed one against its grid twin, on the planes as made (vector
+        row loads) and at a 4-byte offset (the scalar instance), where the
+        grid kernel also takes interval planes; int8 and int32 out."""
+        rows = freshness_rows(**cuts)
+        n = p.dl_in.shape[0]
+        for moved in (False, True):
+            pp = [offset(t) for t in p] if moved else list(p)
+            at = f"{what} offset={moved}"
+            for out_dtype in (torch.int8, torch.int32):
+                grid = dbl_query_verdicts(*pp, u, v, **cuts,
+                                          out_dtype=out_dtype)
+                hold("verdicts_kernel", grid, verdicts_plain(
+                    *p, u, v, **cuts, out_dtype=out_dtype), what=at)
+                hold("streamed_verdicts_kernel",
+                     streamed_verdicts_rows(*pp, u, v, rows,
+                                            out_dtype=out_dtype),
+                     verdicts_streamed_plain(*p, u, v, rows, out_dtype),
+                     grid, what=at)
+            if moved:
+                il = {name: torch.from_numpy(rng.integers(
+                    -50, 50, (n, 6)).astype(np.int32)).to(dev)
+                    for name in ("il_in", "il_out")}
+                hold("verdicts_kernel", dbl_query_verdicts(
+                    *pp, u, v, **cuts, **{k: offset(t) for k, t in
+                                          il.items()}),
+                     verdicts_plain(*p, u, v, **cuts, **il),
+                     what=f"{at} il")
+
     for n, q in shapes:
         for k, kp, cut, il, out_dtype in variants:
             what = f"n={n} q={q} k={k} k'={kp} cut={cut} il={il}"
@@ -286,6 +327,34 @@ def parity_sweep(dev):
                         0, 3, q).astype(np.int32)).to(dev), d_total=1)
                 admit_cases(p, u, v, cuts,
                             f"n=1000 q={q} W_bl={wb} W_dl={wd} cut=md")
+
+    def md_cuts(q):
+        return dict(m_cut=torch.from_numpy(rng.integers(
+            90, 110, q).astype(np.int32)).to(dev), m_total=100,
+            d_cut=torch.from_numpy(rng.integers(
+                0, 3, q).astype(np.int32)).to(dev), d_total=1)
+
+    # every compile-time width pair of the verdict tile, at a ragged Q and
+    # at a whole number of blocks and chunks; the sweep above adds the
+    # run-time width
+    for wd in range(1, 5):
+        for wb in range(1, 5):
+            for q in (37, 512):
+                p = random_planes(rng, 1000, 32 * wd, 32 * wb, dev)
+                u, v = ids(q, 1000), ids(q, 1000)
+                v[::5] = u[::5]
+                verdict_cases(p, u, v, md_cuts(q),
+                              f"n=1000 q={q} W_dl={wd} W_bl={wb} cut=md")
+    # the streamed kernel's walk beyond one wave: its prefetch of the next
+    # chunk's rows and ids
+    q = MULTI_CHUNK_Q
+    g = verdict_geometry(q, 2, 2, _build.sm_count(dev), True, True)
+    if -(-q // g.threads) < 3 * g.blocks:
+        raise AssertionError(f"Q={q} gives a block fewer than 3 chunks: {g}")
+    p = random_planes(rng, LJ_N, 64, 64, dev)
+    u, v = ids(q, LJ_N), ids(q, LJ_N)
+    v[::5] = u[::5]
+    verdict_cases(p, u, v, md_cuts(q), f"n={LJ_N} q={q} W=2 cut=md")
     return worst, cases
 
 
@@ -297,7 +366,8 @@ def kernel_timings(dev):
     the streamed kernels with dirty labels (edge-count and tombstone
     cutoffs, pre-combined into freshness rows as the streamed wrappers
     do).  Each kernel's output must equal its plain version's, bitwise, on
-    the timed inputs."""
+    the timed inputs.  Each verdict shape also gets its launch floor:
+    ``zero_`` of its int8 output, timed the same way."""
     import torch
     from repro_torch.core.query import FRESH_CUT
     from repro_torch.kernels.bfs_prune.bfs_prune import (
@@ -331,7 +401,7 @@ def kernel_timings(dev):
         "verdicts_kernel", f"n_cap={n} W=2 Q={q} int8 out, m_cut",
         lambda: dbl_query_verdicts(*p, u, v, **cuts, out_dtype=torch.int8),
         lambda: verdicts_plain(*p, u, v, **cuts, out_dtype=torch.int8),
-        nbytes, ops)
+        nbytes, ops, floor_q=q)
 
     q = CHUNK_QS[-1]
     u, v = ids(q), ids(q)
@@ -365,7 +435,7 @@ def kernel_timings(dev):
         lambda: streamed_verdicts_rows(*p, u, v, rows2,
                                        out_dtype=torch.int8),
         lambda: verdicts_streamed_plain(*p, u, v, rows2, torch.int8),
-        nbytes, ops)
+        nbytes, ops, floor_q=q)
 
     # the dynamic phase's coalesced chunk on clean labels: the DL term on
     # for every lane (one pre-combined freshness row of ones)
@@ -382,7 +452,11 @@ def kernel_timings(dev):
     return out
 
 
-def timed(name, shape, kernel, plain, nbytes, ops):
+def timed(name, shape, kernel, plain, nbytes, ops, floor_q=None):
+    """Kernel and plain times after a bitwise check on the timed inputs,
+    with the bound; with ``floor_q``, also ``launch_floor_ms``: the
+    device time of ``zero_`` on a (floor_q,) int8 tensor, the least a
+    launch that writes the kernel's output takes."""
     import torch
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -393,10 +467,14 @@ def timed(name, shape, kernel, plain, nbytes, ops):
     plain_ms, plain_host_ms = time_ms(plain, reps=10)
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = ops / PEAK_INT_OPS_PER_S * 1e3
-    return dict(shape=shape, ms=ms, host_loop_ms=host_ms,
-                plain_ms=plain_ms, plain_host_loop_ms=plain_host_ms,
-                bytes=nbytes, ops=ops, bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
+    out = dict(shape=shape, ms=ms, host_loop_ms=host_ms,
+               plain_ms=plain_ms, plain_host_loop_ms=plain_host_ms,
+               bytes=nbytes, ops=ops, bound_ms=max(by_bytes, by_ops),
+               bound_by="bytes" if by_bytes >= by_ops else "operations")
+    if floor_q is not None:
+        zeros = torch.empty(floor_q, dtype=torch.int8, device="cuda")
+        out["launch_floor_ms"] = time_ms(zeros.zero_)[0]
+    return out
 
 
 def ptxas_summary(report):
@@ -404,8 +482,9 @@ def ptxas_summary(report):
     bytes]} from ``_build.ptxas_report``, names cut to the template."""
     out = {}
     for fn, r in report.items():
-        short = fn.split("(admit::Planes")[0].replace(
-            "void (anonymous namespace)::", "").replace("admit::", "")
+        short = re.sub(r"\((admit|verdict)::Planes.*", "", fn)
+        short = re.sub(r"void \(anonymous namespace\)::|admit::|verdict::",
+                       "", short)
         out[short] = [r.get("registers"), r.get("spill_stores"),
                       r.get("spill_loads")]
     return out
@@ -766,7 +845,7 @@ def main():
          libs=[str(_build.library_path(n).relative_to(ROOT))
                for n in _build.SIGNATURES])
     emit("ptxas", **{name: ptxas_summary(_build.ptxas_report(name))
-                     for name in ("bfs_prune", "bfs_prune_streamed")})
+                     for name in _build.SIGNATURES})
 
     worst, cases = parity_sweep(dev)
     emit("parity", cases=cases, max_abs_err=worst, bitwise=True)
@@ -798,7 +877,9 @@ def main():
             "max_abs_err": worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "shape": t["shape"], "host_loop_ms": t["host_loop_ms"]})
+            "shape": t["shape"], "host_loop_ms": t["host_loop_ms"],
+            **({"launch_floor_ms": t["launch_floor_ms"]}
+               if "launch_floor_ms" in t else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

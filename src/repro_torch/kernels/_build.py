@@ -36,15 +36,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "dbl_query": {"dbl_query_verdicts": (
         [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P, _I,
-         _P, _I, _P], _I)},
+         _P, _I, _I, _I, _I, _P], _I)},
     "bfs_prune": {"bfs_admit_plane": (
         [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P,
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)},
-    "dbl_query_streamed": {
-        "dbl_query_verdicts_streamed": (
-            [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P],
-            _I),
-        "dbl_query_streamed_smem_bytes": ([_I, _I], _I)},
+    "dbl_query_streamed": {"dbl_query_verdicts_streamed": (
+        [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I,
+         _P], _I)},
     "bfs_prune_streamed": {"bfs_admit_plane_streamed": (
         [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P,
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)},

@@ -43,7 +43,8 @@ import torch
 
 from repro_torch.core import query as Q
 from repro_torch.kernels import _build
-from repro_torch.kernels.dbl_query.dbl_query import _check, freshness_rows
+from repro_torch.kernels.dbl_query.dbl_query import (_aligned, _check,
+                                                     freshness_rows)
 
 #: threads per block of the grid kernel and of the streamed kernel (the
 #: sources' __launch_bounds__ caps)
@@ -173,10 +174,6 @@ def admit_coverage(g: AdmitGeometry, n_cap: int) -> np.ndarray:
     flat = np.concatenate(idx) if idx else np.zeros(0, np.int64)
     return np.bincount(flat, minlength=n_cap * g.groups).reshape(
         n_cap, g.groups)
-
-
-def _aligned(*ts) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def admit_plain(bl_in, bl_out, dl_in, dl_out, u, v, m_cut=None,

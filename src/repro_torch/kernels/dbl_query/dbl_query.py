@@ -1,33 +1,107 @@
-"""Fused DBL label verdict: the CUDA kernel ``csrc/dbl_query.cu`` and its
-plain PyTorch version.
+"""Fused DBL label verdict: the CUDA kernels ``csrc/dbl_query.cu`` and
+``csrc/dbl_query_streamed.cu``, their plain PyTorch versions and their
+launch geometry.
 
-Replaces the TPU kernel ``src/repro/kernels/dbl_query/dbl_query.py``
-``dbl_query_verdicts`` (body ``_make_kernel``, line 35).  The kernel takes
-the four packed planes (n_cap, W) int32 and the query ids, gathers each
-lane's eight rows itself (one thread per lane) and writes one verdict per
-lane: +1 reachable, 0 unreachable, -1 unknown.  It is bound by bytes (ids,
-eight gathered rows and the verdict per lane), so at a serving batch its
-time is launch latency; see the source for the design.
+``verdicts_kernel`` replaces the TPU kernel
+``src/repro/kernels/dbl_query/dbl_query.py`` ``dbl_query_verdicts`` (body
+``_make_kernel``, line 35).  It takes the four packed planes (n_cap, W)
+int32 and the query ids and writes one verdict per lane: +1 reachable, 0
+unreachable, -1 unknown.  ``streamed_verdicts_kernel`` replaces
+``dbl_query_verdicts_streamed`` (body ``_make_streamed_kernel``, line
+174): the same verdicts without interval planes, persistent blocks walking
+chunks of the query axis, the cutoffs pre-combined into freshness rows.
 
-``dbl_query_verdicts`` launches the kernel for CUDA tensors and takes
-``verdicts_plain`` for CPU tensors.  ``dbl_query_verdicts.launches``
-counts kernel launches.
+Both kernels are built on one tile (``csrc/verdict_tile.cuh``): one
+thread a lane loads the lane's ids and cutoffs, then all eight label rows
+at once (whole rows, compile-time widths W = 1..4 with vector loads where
+the planes are aligned, or a run-time-width instance), and folds them
+into one accumulator per test.  They are bound by bytes (ids, eight
+gathered rows and the verdict per lane); at a serving batch the rows sit
+in L2 and the time is the launch and two dependent round trips.
+``verdict_geometry`` picks the launch (blocks, threads) and the compiled
+instance; ``verdict_coverage`` mirrors the kernels' index
+arithmetic for the CPU tests.
 
-The streamed kernel ``csrc/dbl_query_streamed.cu`` replaces
-``dbl_query_verdicts_streamed`` (body ``_make_streamed_kernel``, line 174):
-the same verdicts without interval planes, the query axis streamed in
-chunks, the cutoffs pre-combined into freshness rows.
-``dbl_query_verdicts_streamed`` and ``verdicts_streamed_plain`` are its
-wrapper and plain version.
+``dbl_query_verdicts`` and ``streamed_verdicts_rows`` launch the kernels
+for CUDA tensors and take ``verdicts_plain`` / ``verdicts_streamed_plain``
+for CPU tensors.  ``dbl_query_verdicts.launches`` and
+``dbl_query_verdicts_streamed.launches`` count kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.core import query as Q
 from repro_torch.kernels import _build
+
+#: threads per block of the grid kernel, one lane a thread: the fastest of
+#: 64 to 1 024 threads, and of two threads a lane, at the LJ label batch
+#: on an H100 (PERF.md)
+GRID_THREADS = 64
+#: the streamed kernel's largest chunk (lanes = threads per block, the
+#: sources' __launch_bounds__ cap)
+MAX_CHUNK = 256
+
+
+@dataclass(frozen=True)
+class VerdictGeometry:
+    """Launch of a verdict kernel, one lane a thread.  Thread ``t`` of
+    block ``b`` takes lane ``threads * b + t`` (the grid kernel) or lanes
+    ``threads * (b + j * blocks) + t`` for j = 0, 1, ... below Q (the
+    streamed kernel's persistent walk over chunks of ``threads`` lanes).
+    ``instance`` is the compiled rows instance ``(W_dl, W_bl, vec)``, or
+    None for the run-time widths."""
+    blocks: int
+    threads: int
+    instance: tuple[int, int, bool] | None
+
+
+def verdict_geometry(q: int, wd: int, wb: int, sms: int, streamed: bool,
+                     aligned: bool) -> VerdictGeometry:
+    """The launch for Q lanes of W_dl/W_bl-word label rows on a card with
+    ``sms`` SMs.  The grid kernel takes ``GRID_THREADS``-thread blocks.
+    The streamed kernel takes at most one block per SM, each walking
+    chunks of ``threads`` lanes: the chunk spreads Q over the SMs (a
+    multiple of 32, at most ``MAX_CHUNK``), so that no block walks two
+    chunks while Q fits one wave.  ``aligned``: the four planes' bases
+    are 16-byte aligned.  The instance is one the sources compile
+    (``verdict::dispatch`` in ``csrc/verdict_tile.cuh``): compile-time
+    widths for W in 1..4, with vector row loads where the planes are
+    aligned and a width is 2 or 4 (a 3-word row is not 8-byte aligned at
+    odd rows); None, the run-time widths, beyond."""
+    inst = None
+    if 1 <= wd <= 4 and 1 <= wb <= 4:
+        inst = wd, wb, aligned and (wd in (2, 4) or wb in (2, 4))
+    if not streamed:
+        return VerdictGeometry(-(-q // GRID_THREADS), GRID_THREADS, inst)
+    per_sm = -(-q // sms)
+    chunk = min(MAX_CHUNK, max(32, -(-per_sm // 32) * 32))
+    return VerdictGeometry(min(sms, -(-q // chunk)), chunk, inst)
+
+
+def verdict_coverage(g: VerdictGeometry, q: int) -> np.ndarray:
+    """(blocks, Q) int64: how many times each block writes each lane, by
+    the kernels' index arithmetic (see ``VerdictGeometry``).  Every
+    column sums to 1 for a geometry that covers Q exactly once; a row's
+    sum over ``threads`` (rounded up) is the number of chunks its block
+    computes in series."""
+    out = np.zeros((g.blocks, q), np.int64)
+    for b in range(g.blocks):
+        for c0 in range(b * g.threads, q, g.blocks * g.threads):
+            out[b, c0:c0 + g.threads] += 1
+    return out
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _vec(g: VerdictGeometry) -> bool:
+    return g.instance is not None and g.instance[2]
 
 
 def verdicts_plain(dl_in, dl_out, bl_in, bl_out, u, v,
@@ -107,6 +181,8 @@ def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
     out = torch.empty(q, dtype=out_dtype, device=dev)
     if q == 0:
         return out
+    g = verdict_geometry(q, wd, wb, _build.sm_count(dev), streamed=False,
+                         aligned=_aligned(dl_in, dl_out, bl_in, bl_out))
     lib = _build.load("dbl_query")
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     p = _build.ptr
@@ -115,7 +191,8 @@ def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
             p(dl_in), p(dl_out), wd, p(bl_in), p(bl_out), wb, n_cap, p(u),
             p(v), q, p(m_cut), int(m_total or 0), p(d_cut),
             int(d_total or 0), p(il_in), p(il_out), wi, p(out),
-            int(out_dtype == torch.int8), stream)
+            int(out_dtype == torch.int8), int(_vec(g)), g.threads,
+            g.blocks, stream)
     _build.check(lib, err, "verdicts_kernel")
     dbl_query_verdicts.launches += 1
     return out
@@ -124,7 +201,7 @@ def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
 dbl_query_verdicts.launches = 0
 
 
-# ------------------------------------------------- streamed (double-buffered)
+# ------------------------------------------------------------- streamed
 def freshness_rows(m_cut=None, m_total=None, d_cut=None, d_total=None
                    ) -> torch.Tensor | None:
     """The streamed kernels' pre-combined cutoffs, as the reference wrapper
@@ -174,8 +251,8 @@ def dbl_query_verdicts_streamed(dl_in, dl_out, bl_in, bl_out, u, v,
 def streamed_verdicts_rows(dl_in, dl_out, bl_in, bl_out, u, v, cut=None, *,
                            out_dtype=torch.int32) -> torch.Tensor:
     """The streamed kernel ``csrc/dbl_query_streamed.cu`` on pre-combined
-    freshness rows ``cut`` (ncut, Q) int32 0/1 or None (persistent blocks,
-    a two-stage cp.async ring over 128-lane chunks of the query axis).
+    freshness rows ``cut`` (ncut, Q) int32 0/1 or None (persistent blocks
+    walking chunks of the query axis, see ``verdict_geometry``).
     CPU tensors take ``verdicts_streamed_plain``.
     ``dbl_query_verdicts_streamed.launches`` counts kernel launches."""
     if out_dtype not in (torch.int8, torch.int32):
@@ -205,19 +282,16 @@ def streamed_verdicts_rows(dl_in, dl_out, bl_in, bl_out, u, v, cut=None, *,
     out = torch.empty(q, dtype=out_dtype, device=dev)
     if q == 0:
         return out
+    g = verdict_geometry(q, wd, wb, _build.sm_count(dev), streamed=True,
+                         aligned=_aligned(dl_in, dl_out, bl_in, bl_out))
     lib = _build.load("dbl_query_streamed")
-    smem = lib.dbl_query_streamed_smem_bytes(wd, wb)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"W_dl={wd}, W_bl={wb} need {smem} bytes of shared "
-                         "memory per block, above the card's "
-                         f"{_build.MAX_SMEM_BYTES}")
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     p = _build.ptr
     with torch.cuda.device(dev):
         err = lib.dbl_query_verdicts_streamed(
             p(dl_in), p(dl_out), wd, p(bl_in), p(bl_out), wb, n_cap, p(u),
             p(v), q, p(cut), ncut, p(out), int(out_dtype == torch.int8),
-            _build.sm_count(dev), stream)
+            int(_vec(g)), g.threads, g.blocks, stream)
     _build.check(lib, err, "streamed_verdicts_kernel")
     dbl_query_verdicts_streamed.launches += 1
     return out

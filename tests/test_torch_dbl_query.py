@@ -1,6 +1,10 @@
 """The verdict kernel's plain version (the CPU path of the port's
 ``dbl_query_verdicts``) against the JAX Pallas kernel in interpret mode and
-its reference, bitwise."""
+its reference, bitwise; the verdict kernels' launch geometry, compiled
+instances and build hash."""
+import re
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,9 +16,10 @@ from repro.kernels.dbl_query.ops import verdicts_device as j_verdicts_device
 from repro.kernels.dbl_query.ref import verdict_ref
 from repro_torch.core import bitset as TB
 from repro_torch.core import query as TQ
+from repro_torch.kernels import _build
 from repro_torch.kernels.dbl_query import ops as T_ops
-from repro_torch.kernels.dbl_query.dbl_query import (dbl_query_verdicts,
-                                                     verdicts_plain)
+from repro_torch.kernels.dbl_query.dbl_query import (
+    dbl_query_verdicts, verdict_coverage, verdict_geometry, verdicts_plain)
 
 N = 97
 
@@ -117,3 +122,61 @@ def test_query_verdicts_clamps_dead_lane_and_matches_core():
         dbl_query_verdicts(*tp, torch.from_numpy(u), torch.from_numpy(v),
                            d_cut=torch.zeros(4, dtype=torch.int32),
                            d_total=1)
+
+
+# ------------------------------------------------------ launch geometry
+def test_verdict_geometry_grid_covers_every_lane_once():
+    """The grid kernel's blocks write each lane exactly once, for ragged
+    and wide Q, and the LJ label batch puts work on every SM."""
+    for q in (1, 31, 37, 64, 513, 20_032, 200_003):
+        for wd, wb in ((2, 2), (4, 4), (5, 2), (1, 3)):
+            g = verdict_geometry(q, wd, wb, 132, streamed=False,
+                                 aligned=True)
+            assert g.threads % 32 == 0 and g.threads <= 256
+            cover = verdict_coverage(g, q)
+            assert (cover.sum(0) == 1).all(), (q, g)
+    assert verdict_geometry(20_032, 2, 2, 132, False, True).blocks >= 132
+
+
+def test_verdict_geometry_takes_only_compiled_instances():
+    """Compile-time widths for W in 1..4, vector row loads only where the
+    planes are aligned and a width is 2 or 4, the run-time widths beyond;
+    the sources compile exactly those 16 + 12 pairs
+    (``verdict::dispatch`` in ``csrc/verdict_tile.cuh``)."""
+    seen = set()
+    for wd in range(0, 7):
+        for wb in range(0, 7):
+            for aligned in (False, True):
+                inst = verdict_geometry(37, wd, wb, 132, streamed=False,
+                                        aligned=aligned).instance
+                assert verdict_geometry(
+                    37, wd, wb, 132, streamed=True,
+                    aligned=aligned).instance == inst
+                if not (1 <= wd <= 4 and 1 <= wb <= 4):
+                    assert inst is None
+                    continue
+                assert inst[:2] == (wd, wb)
+                assert inst[2] == (aligned and bool({wd, wb} & {2, 4}))
+                seen.add(inst)
+    assert len(seen) == 28 and sum(i[2] for i in seen) == 12
+    tile = (_build.CSRC / "verdict_tile.cuh").read_text()
+    cases = set(re.findall(r"VERDICT_CASE\((\d), (\d)\)", tile))
+    assert cases == {(str(d), str(b)) for d in range(1, 5)
+                     for b in range(1, 5)}
+    assert "if constexpr (D == 2 || D == 4 || B == 2 || B == 4)" in tile
+
+
+def test_library_path_tracks_verdict_tile(tmp_path, monkeypatch):
+    """Both verdict sources include the shared tile, and an edit to it
+    rebuilds both libraries."""
+    for name in ("dbl_query", "dbl_query_streamed"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "verdict_tile.cuh"' in src
+    shutil.copytree(_build.CSRC, tmp_path / "csrc")
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    before = {n: _build.library_path(n)
+              for n in ("dbl_query", "dbl_query_streamed")}
+    tile = tmp_path / "csrc" / "verdict_tile.cuh"
+    tile.write_text(tile.read_text() + "// edited\n")
+    for n, path in before.items():
+        assert _build.library_path(n) != path

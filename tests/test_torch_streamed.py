@@ -206,3 +206,39 @@ def test_streaming_engine_warns_once_per_engine():
         for got, exp in zip((first, second), want):
             for a, b in zip(got, exp):
                 assert torch.equal(a, b)
+
+
+# --------------------------------------- the streamed verdicts' geometry
+@pytest.mark.parametrize("q", [1, 37, 64, 4_224, 20_032, 33_793, 200_003])
+def test_streamed_verdict_geometry_covers_every_lane_once(q):
+    """The persistent walk (block b takes chunks b, b + blocks, ...)
+    writes each lane exactly once, with at most one block per SM, for
+    ragged Q, one wave and many chunks a block."""
+    for sms in (1, 7, 132):
+        for wd, wb in ((2, 2), (4, 1), (5, 5)):
+            g = T_dbl.verdict_geometry(q, wd, wb, sms, streamed=True,
+                                       aligned=True)
+            assert g.blocks <= sms
+            assert g.threads % 32 == 0 and 32 <= g.threads <= T_dbl.MAX_CHUNK
+            cover = T_dbl.verdict_coverage(g, q)
+            assert (cover.sum(0) == 1).all(), (q, sms, g)
+            assert (cover.sum(1) > 0).all()      # every block has work
+
+
+def test_streamed_verdict_geometry_one_chunk_a_block_in_one_wave():
+    """At the LJ label batch on 132 SMs no block computes two chunks in
+    series; at Q = 200 003 every block walks three or more."""
+    g = T_dbl.verdict_geometry(20_032, 2, 2, 132, streamed=True,
+                               aligned=True)
+    assert (g.blocks, g.threads, g.instance) == (126, 160, (2, 2, True))
+    steps = -(-T_dbl.verdict_coverage(g, 20_032).sum(1) // g.threads)
+    assert steps.max() == 1
+    g = T_dbl.verdict_geometry(200_003, 2, 2, 132, streamed=True,
+                               aligned=True)
+    assert g.blocks == 132
+    steps = -(-T_dbl.verdict_coverage(g, 200_003).sum(1) // g.threads)
+    assert steps.min() >= 3
+    # unaligned planes take the scalar instance
+    assert T_dbl.verdict_geometry(
+        20_032, 2, 2, 132, streamed=True, aligned=False).instance == \
+        (2, 2, False)
