@@ -44,7 +44,22 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``_host_reach``.  64 random
    answers per round are checked against a host BFS over that round's
    live edges.  The streamed kernels' launch counters must grow here.
-6. the ``kernels`` summary line, then the ``ok`` line last.
+6. il_packed: the LJ preset at full size built with
+   ``families=("dl", "bl", "il"), il_dim=4, plane_repr="packed"`` (DL/BL
+   planes equal to the bool build's, interval planes equal to the CPU
+   build's, no fixpoint saturated) and served by a packed engine
+   (``frontier_dtype="packed"``, int32 verdicts) behind a
+   ``ReachabilityServer`` beside a default index and engine: 4 rounds of
+   20 000 queries and 100 inserts (one pipelined), a round that deletes
+   500 single-slot pairs, a dirty round that deletes 500 more (no "il"
+   hits), the lazy rebuild at the next flush (planes equal to a fresh
+   build's) and a clean round.  Every answer equals the default engine's;
+   the residue lanes and 64 random ones per round equal a host BFS.  A
+   streaming engine on the index warns ``StreamILFallbackWarning`` once
+   and takes the grid verdict kernel and the streamed admit kernel.  Then
+   the interval AND's time and a profiled round.  Launch counts add to
+   the grid kernels' and the streamed admit kernel's.
+7. the ``kernels`` summary line, then the ``ok`` line last.
 """
 import json
 import re
@@ -87,6 +102,10 @@ MULTI_CHUNK_Q = 200_003
 #: tombstone ratio (850 of the LJ preset's 850 000 edges)
 DELETES = 500
 DEAD_RATIO = 0.001
+#: the il_packed phase: served rounds before the delete rounds, and the
+#: interval family's knobs
+N_IL_ROUNDS = 4
+IL_FAM = dict(families=("dl", "bl", "il"), il_dim=4, il_seed=0)
 
 
 def emit(phase, **kw):
@@ -366,8 +385,9 @@ def kernel_timings(dev):
     the streamed kernels with dirty labels (edge-count and tombstone
     cutoffs, pre-combined into freshness rows as the streamed wrappers
     do).  Each kernel's output must equal its plain version's, bitwise, on
-    the timed inputs.  Each verdict shape also gets its launch floor:
-    ``zero_`` of its int8 output, timed the same way."""
+    the timed inputs.  Each shape also gets its launch floor: ``zero_`` of
+    its int8 output ((Q,) verdicts, (n_cap, Qc) admit plane), timed the
+    same way."""
     import torch
     from repro_torch.core.query import FRESH_CUT
     from repro_torch.kernels.bfs_prune.bfs_prune import (
@@ -417,7 +437,7 @@ def kernel_timings(dev):
     out["admit_kernel"] = timed(
         "admit_kernel", f"n_cap={n} W=2 Qc={q} int8 out, m_cut",
         lambda: bfs_admit_plane(*args, **cuts),
-        lambda: admit_plain(*args, **cuts), nbytes, ops)
+        lambda: admit_plain(*args, **cuts), nbytes, ops, floor_q=n * q)
 
     # the dynamic phase's dirty label phase: both freshness rows (all
     # fresh by edge count, all stale by tombstone), as the engine passes
@@ -448,15 +468,16 @@ def kernel_timings(dev):
     out["streamed_admit_kernel"] = timed(
         "streamed_admit_kernel", f"n_cap={n} W=2 Qc={q} int8 out, fresh row",
         lambda: streamed_admit_row(*args, fresh),
-        lambda: admit_streamed_plain(*args, fresh), nbytes, ops)
+        lambda: admit_streamed_plain(*args, fresh), nbytes, ops,
+        floor_q=n * q)
     return out
 
 
 def timed(name, shape, kernel, plain, nbytes, ops, floor_q=None):
     """Kernel and plain times after a bitwise check on the timed inputs,
     with the bound; with ``floor_q``, also ``launch_floor_ms``: the
-    device time of ``zero_`` on a (floor_q,) int8 tensor, the least a
-    launch that writes the kernel's output takes."""
+    device time of ``zero_`` on ``floor_q`` int8 bytes, the least a launch
+    that writes the kernel's output takes."""
     import torch
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -783,11 +804,304 @@ def dynamic_phase(dev, card):
     return launches
 
 
-def profile_round(srv, rng, n, card, phase="profile"):
-    """One more served round (20 000 queries, then 100 inserts) through
-    ``srv`` (a server or an engine) under ``torch.profiler``: device time
-    by kernel and the device's busy share of the round's wall time.  Runs
-    after the launch counts were read."""
+def il_packed_phase(dev, card):
+    """The "il" family and word planes at full LJ width: the
+    ``("dl", "bl", "il")`` index built with ``plane_repr="packed"`` and
+    served by a packed engine (``frontier_dtype="packed"``, int32 verdict
+    stores) behind a ``ReachabilityServer``, beside a default index and
+    engine on the same stream.  Checks the build against the bool build
+    and the CPU build, every answer against the default engine's and the
+    checked ones against a host BFS, the "il" column on a dirty round, the
+    lazy rebuild's planes against a fresh build's, and the streaming
+    engine's fallback to the grid verdict kernel.  Returns the kernels'
+    launch counts over its served rounds."""
+    import warnings
+
+    import torch
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.core import graph as G
+    from repro_torch.core import interval as IL
+    from repro_torch.core import labels as L
+    from repro_torch.core import select as S
+    from repro_torch.core.query import (PackedLabels, il_violation_plane,
+                                        label_verdicts)
+    from repro_torch.graphs.generators import table2_graph
+    from repro_torch.kernels.bfs_prune.bfs_prune import (
+        bfs_admit_plane, bfs_admit_plane_streamed)
+    from repro_torch.kernels.dbl_query.dbl_query import (
+        dbl_query_verdicts, dbl_query_verdicts_streamed)
+    from repro_torch.kernels.dbl_query.ops import StreamILFallbackWarning
+    from repro_torch.serve.engine import QueryEngine
+    from repro_torch.serve.reach_server import ReachabilityServer
+
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    m = int(src.size)
+    # every served round inserts a batch: four, two delete rounds and one
+    # after the rebuild
+    m_cap = m + (N_IL_ROUNDS + 3) * INSERTS
+    rng = np.random.default_rng(3)
+    kw = dict(n_cap=n, k=64, k_prime=64, max_iters=64, check="raise",
+              device=dev)
+
+    def graph():
+        return make_graph(src, dst, n, m_cap=m_cap, device=dev)
+
+    def timed_build(**extra):
+        g = graph()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        idx = DBLIndex.build(g, **kw, **extra)
+        torch.cuda.synchronize()
+        return idx, time.perf_counter() - t
+
+    base, bool_s = timed_build()
+    idx, il_s = timed_build(plane_repr="packed", **IL_FAM)
+    for f in ("dl_in", "dl_out", "bl_in", "bl_out", "landmarks"):
+        if not torch.equal(getattr(idx, f), getattr(base, f)):
+            raise AssertionError(f"il+packed build differs from the bool "
+                                 f"build in {f}")
+    g_cpu = make_graph(src, dst, n, m_cap=m_cap, device="cpu")
+    cpu_in, cpu_out, _ = IL.build_il(g_cpu, n_cap=n, dim=IL_FAM["il_dim"],
+                                     seed=IL_FAM["il_seed"], max_iters=64)
+    if not (torch.equal(idx.il_in.cpu(), cpu_in)
+            and torch.equal(idx.il_out.cpu(), cpu_out)):
+        raise AssertionError("il planes on the card differ from the CPU "
+                             "build's")
+    # the six fixpoints' round counts, by the build's own steps
+    g = graph()
+    lm = S.select_landmarks(g, n_cap=n, k=64)
+    sources, sinks = S.leaf_masks(g, n_cap=n)
+    iters = (L.build_dl(g, lm, n_cap=n, k=64, max_iters=64,
+                        plane_repr="packed")[2]
+             + L.build_bl(g, sources, sinks, n_cap=n, k_prime=64,
+                          max_iters=64, plane_repr="packed")[2]
+             + IL.build_il(g, n_cap=n, dim=IL_FAM["il_dim"],
+                           seed=IL_FAM["il_seed"], max_iters=64)[2])
+    if max(iters) > 64:
+        raise AssertionError(f"a fixpoint saturated: {iters}")
+    emit("il_packed_build", n=n, m=m, k=64, k_prime=64, **IL_FAM,
+         iters_dl_bl_il=iters, build_s=il_s, bool_build_s=bool_s,
+         il_equals_cpu=True, dl_bl_equal_bool=True, card=card)
+
+    engine_kw = dict(bfs_chunk=BFS_CHUNK, max_iters=64, bfs_kernel=True)
+    srvs = {
+        "il_packed": ReachabilityServer(
+            None, engine=QueryEngine(idx, plane_repr="packed",
+                                     frontier_dtype="packed",
+                                     out_dtype="int32", **engine_kw),
+            rebuild_mode="auto", rebuild_dead_ratio=DEAD_RATIO),
+        "default": ReachabilityServer(
+            None, engine=QueryEngine(base, **engine_kw),
+            rebuild_mode="auto", rebuild_dead_ratio=DEAD_RATIO)}
+    counters = (dbl_query_verdicts, bfs_admit_plane,
+                dbl_query_verdicts_streamed, bfs_admit_plane_streamed)
+    for f in counters:
+        f.launches = 0
+    checked = 0
+
+    def served_round(r, mode):
+        """One round on both servers: queries (pipelined across the
+        insert in "submit-insert-flush"), 100 inserts, then ``mode``'s
+        deletes; answers held against each other and a host BFS."""
+        nonlocal checked
+        u = rng.integers(0, n, QUERIES).astype(np.int32)
+        v = rng.integers(0, n, QUERIES).astype(np.int32)
+        ns = rng.integers(0, n, INSERTS).astype(np.int32)
+        nd = rng.integers(0, n, INSERTS).astype(np.int32)
+        snap = srvs["il_packed"].index
+        es, ed = live_edges(snap.graph)
+        words = PackedLabels(*(w.clone() for w in snap.packed))
+        il = tuple(x.clone() for x in snap.il)
+        dirty = snap.is_dirty
+        out = {}
+        for name, srv in srvs.items():
+            before = srv.engine.stats.as_dict()["prune_hits"]
+            rebuild_s0 = srv.stats.rebuild_s
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if mode == "submit-insert-flush":
+                srv.submit(u, v)
+                ti = time.perf_counter()
+                srv.insert(ns, nd)
+                insert_s = time.perf_counter() - ti
+                ans = srv.flush(consistency="as-of-submit")[0]
+                query_s = time.perf_counter() - t - insert_s
+            else:
+                ans = srv.query(u, v)
+                query_s = time.perf_counter() - t
+                ti = time.perf_counter()
+                srv.insert(ns, nd)
+                insert_s = time.perf_counter() - ti
+            rebuild_s = srv.stats.rebuild_s - rebuild_s0
+            after = srv.engine.stats.as_dict()["prune_hits"]
+            hits = {k: after[k] - before[k] for k in after}
+            out[name] = dict(ans=ans, hits=hits, query_ms=(
+                query_s - rebuild_s) * 1e3, insert_ms=insert_s * 1e3,
+                rebuild_ms=rebuild_s * 1e3,
+                rho=1 - hits["bfs"] / QUERIES)
+        a, b = out["il_packed"], out["default"]
+        if not np.array_equal(a["ans"], b["ans"]):
+            raise AssertionError(f"il_packed round {r}: answers differ "
+                                 "from the default engine's")
+        if dirty and not a["rebuild_ms"] and a["hits"]["il"]:
+            raise AssertionError(f"il_packed round {r}: {a['hits']['il']} "
+                                 "il hits on dirty labels")
+        lanes = rng.choice(QUERIES, RANDOM_CHECKS, replace=False)
+        if not dirty:
+            # the residue by the snapshot's labels, in plain torch ops
+            verd = label_verdicts(words, torch.from_numpy(u).to(dev),
+                                  torch.from_numpy(v).to(dev), il=il)
+            res = np.flatnonzero(verd.cpu().numpy() == -1)
+            if res.size != a["hits"]["bfs"]:
+                raise AssertionError(
+                    f"il_packed round {r}: {res.size} unknown lanes by the "
+                    f"labels, the engine ran {a['hits']['bfs']}")
+            lanes = np.union1d(lanes, res)
+        reach = host_reach(n, es, ed, np.unique(u[lanes]))
+        want = np.array([reach[int(u[i])][v[i]] for i in lanes])
+        bad = int((a["ans"][lanes] != want).sum())
+        if bad:
+            raise AssertionError(f"il_packed round {r}: {bad} of "
+                                 f"{lanes.size} checked answers differ from "
+                                 "the host BFS")
+        checked += lanes.size
+        deletes = 0
+        if mode == "delete":
+            ls, ld = live_edges(srvs["il_packed"].index.graph)
+            pairs, mult = np.unique(ls.astype(np.int64) * n + ld,
+                                    return_counts=True)
+            pick = rng.choice(pairs[mult == 1], DELETES, replace=False)
+            ds, dd = (pick // n).astype(np.int32), (pick % n).astype(np.int32)
+            for name, srv in srvs.items():
+                t = time.perf_counter()
+                srv.delete(ds, dd)
+                out[name]["delete_ms"] = (time.perf_counter() - t) * 1e3
+            deletes = DELETES
+        emit("il_packed_round", round=r, mode=mode, queries=QUERIES,
+             inserts=INSERTS, deletes=deletes, dirty_at_query=dirty and not
+             a["rebuild_ms"], last_rebuild=srvs["il_packed"].engine
+             .last_rebuild_info if a["rebuild_ms"] else None,
+             **{name: {k: x for k, x in o.items() if k != "ans"}
+                for name, o in out.items()}, card=card)
+
+    def streaming_check():
+        """A streaming engine on the (dirty) "il" index: one warning, the
+        grid verdict kernel, the streamed admit kernel for the residue,
+        answers equal to the packed engine's.  Its launches are counted
+        from 0; its grid verdict launches add to the phase's, and its
+        streamed admit launches are returned."""
+        saved = [f.launches for f in counters]
+        for f in counters:
+            f.launches = 0
+        eng = QueryEngine(srvs["il_packed"].index, streaming=True,
+                          plane_repr="packed", frontier_dtype="packed",
+                          out_dtype="int32", **engine_kw)
+        u = rng.integers(0, n, QUERIES).astype(np.int32)
+        v = rng.integers(0, n, QUERIES).astype(np.int32)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = [eng.query(u, v), eng.query(v, u)]
+        warned = sum(issubclass(w.category, StreamILFallbackWarning)
+                     for w in caught)
+        stream = {"streamed_verdicts_kernel":
+                  dbl_query_verdicts_streamed.launches,
+                  "streamed_admit_kernel": bfs_admit_plane_streamed.launches,
+                  "verdicts_kernel": dbl_query_verdicts.launches,
+                  "admit_kernel": bfs_admit_plane.launches}
+        # the grid kernels' launches join the phase's count; the streamed
+        # counters go back to what the grid engines left them at
+        for f, c in zip(counters, saved):
+            f.launches = c + (f.launches if f in counters[:2] else 0)
+        emit("il_packed_streaming", warnings=warned, launches=stream,
+             residue_lanes=eng.stats.prune_hits["bfs"], card=card)
+        if warned != 1:
+            raise AssertionError(f"the streaming engine warned {warned} "
+                                 "times")
+        if stream["streamed_verdicts_kernel"] or stream["admit_kernel"] \
+                or not stream["streamed_admit_kernel"] \
+                or not stream["verdicts_kernel"]:
+            raise AssertionError(f"streaming il launches: {stream}")
+        want = [srvs["il_packed"].engine.query(u, v),
+                srvs["il_packed"].engine.query(v, u)]
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("the streaming engine's answers differ")
+        return stream["streamed_admit_kernel"]
+
+    for r in range(N_IL_ROUNDS):
+        served_round(r, "submit-insert-flush" if r == 2 else
+                     "query-then-insert")
+    # a round that deletes 500 single-slot pairs (below the tombstone
+    # ratio), then a dirty round that deletes 500 more (the ratio trips);
+    # the lazy rebuild runs at the next flush boundary.  The streaming
+    # engine runs on the dirty index, where the residue is not empty.
+    served_round(N_IL_ROUNDS, "delete")
+    streamed_admit = streaming_check()
+    # a dirty query batch under the profiler, without the insert that
+    # would set the two servers apart
+    profile_round(srvs["il_packed"].engine, rng, n, card,
+                  phase="il_packed_dirty_profile", insert=False)
+    served_round(N_IL_ROUNDS + 1, "delete")
+    srv = srvs["il_packed"]
+    if not srv.engine_stats()["rebuild_due"]:
+        raise AssertionError("the lazy rebuild is not due after two "
+                             "delete rounds")
+    g_due = srv.index.graph
+    rebuild_ms = {}
+    for name, s_ in srvs.items():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s_.flush()
+        rebuild_ms[name] = (time.perf_counter() - t) * 1e3
+        if s_.stats.rebuilds != 1:
+            raise AssertionError(f"{name}: the lazy rebuild did not run")
+    fresh = DBLIndex.build(G.compact(g_due), plane_repr="packed", **kw,
+                           **IL_FAM)
+    for f in ("il_in", "il_out", "dl_in", "dl_out", "bl_in", "bl_out",
+              "landmarks"):
+        if not torch.equal(getattr(srv.index, f), getattr(fresh, f)):
+            raise AssertionError(f"the lazy rebuild's {f} differs from a "
+                                 "fresh build's")
+    emit("il_packed_rebuild", rebuild_ms=rebuild_ms,
+         info=srv.engine.last_rebuild_info,
+         default_info=srvs["default"].engine.last_rebuild_info,
+         equals_fresh_build=True, card=card)
+    served_round(N_IL_ROUNDS + 2, "query-then-insert")
+    launches = {"verdicts_kernel": dbl_query_verdicts.launches,
+                "admit_kernel": bfs_admit_plane.launches}
+    streamed = {"streamed_verdicts_kernel":
+                dbl_query_verdicts_streamed.launches,
+                "streamed_admit_kernel": bfs_admit_plane_streamed.launches}
+    emit("il_packed_launches", **launches, streamed_kernels=streamed,
+         checked_lanes=checked, mismatches=0)
+    for name, c in launches.items():
+        if c <= 0:
+            raise AssertionError(f"{name} never launched in the il_packed "
+                                 "phase")
+    if any(streamed.values()):
+        raise AssertionError(f"the grid engines launched a streamed "
+                             f"kernel: {streamed}")
+    launches["streamed_admit_kernel"] = streamed_admit
+
+    # the interval AND at the coalesced phase's chunk, alone and with the
+    # admit plane it gates
+    il = srv.index.il
+    q = CHUNK_QS[-1]
+    vv = torch.from_numpy(rng.integers(0, n, q).astype(np.int32)).to(dev)
+    admit = torch.ones((n, q), dtype=torch.int8, device=dev)
+    and_ms = time_ms(lambda: (admit > 0) & ~il_violation_plane(il, vv))[0]
+    plane_ms = time_ms(lambda: il_violation_plane(il, vv))[0]
+    emit("il_and", shape=f"n_cap={n} dim={IL_FAM['il_dim']} Qc={q}",
+         il_violation_plane_ms=plane_ms, and_ms=and_ms,
+         bool_bytes=n * q * 2 * IL_FAM["il_dim"], card=card)
+    profile_round(srv, rng, n, card, phase="il_packed_profile")
+    return launches
+
+
+def profile_round(srv, rng, n, card, phase="profile", insert=True):
+    """One more served round (20 000 queries, then 100 inserts unless
+    ``insert`` is False) through ``srv`` (a server or an engine) under
+    ``torch.profiler``: device time by kernel and the device's busy share
+    of the round's wall time.  Runs after the launch counts were read."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -801,7 +1115,8 @@ def profile_round(srv, rng, n, card, phase="profile"):
         t = time.perf_counter()
         srv.query(u, v)
         tq = time.perf_counter()
-        srv.insert(ns, nd)
+        if insert:
+            srv.insert(ns, nd)
         torch.cuda.synchronize()
         t_end = time.perf_counter()
     per_kernel = {}
@@ -854,6 +1169,8 @@ def main():
 
     launches = main_path(dev, card)
     launches.update(dynamic_phase(dev, card))
+    for name, c in il_packed_phase(dev, card).items():
+        launches[name] += c
 
     csrc = "src/repro_torch/kernels/csrc"
     meta = {

@@ -7,11 +7,14 @@
     idx = idx.rebuild(mode="auto")         # label rebuild over live edges
 
 Bool planes (n_cap, k) uint8 are the source of truth; packed int32 words
-are kept in sync and feed the query path and the kernels.  This slice
-serves the default label families ("dl", "bl") with the replicated layout
-and bool planes; the "il" family comes in a later slice and raises
-``NotImplementedError`` here.  ``from_numpy``/``to_numpy`` carry an index
-to and from the reference's field names.
+are kept in sync and feed the query path and the kernels.
+``plane_repr="packed"`` runs every OR fixpoint (build, insert, rebuild) on
+the words instead, with bitwise-equal planes.  ``families`` adds plug-in
+label families to the fused ("dl", "bl") core (``core.families``): the
+"il" interval family stores two (n_cap, 2*dim) int32 planes and the seed
+it re-draws them from.  The layout is replicated (one device).
+``from_numpy``/``to_numpy`` carry an index to and from the reference's
+field names.
 
 **Fully-dynamic mode.**  ``delete_edges`` stamps tombstones and leaves the
 labels as a sound over-approximation; while dirty (``graph.del_epoch`` is
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from . import bitset
+from . import families as F
 from . import graph as G
 from . import labels as L
 from . import propagate as P
@@ -41,7 +45,7 @@ from . import query as Q
 from . import select as S
 from . import update as U
 
-DEFAULT_FAMILIES = ("dl", "bl")
+DEFAULT_FAMILIES = F.DEFAULT_FAMILIES
 
 
 class LabelSaturationWarning(UserWarning):
@@ -117,6 +121,12 @@ class DBLIndex:
     label_del_epoch: int = 0
     # sticky: some fixpoint of this index hit max_iters
     saturated: bool = False
+    # the "il" plug-in family: (n_cap, 2*dim) int32 [lo | -hi] interval
+    # planes per direction and the int32 seed they are drawn from (None
+    # for the default families)
+    il_in: torch.Tensor | None = None
+    il_out: torch.Tensor | None = None
+    il_seed: int | None = None
 
     @property
     def n_cap(self) -> int:
@@ -135,6 +145,20 @@ class DBLIndex:
         return self.dl_in.device
 
     @property
+    def families(self) -> tuple[str, ...]:
+        """Enabled label families, from what the index stores."""
+        return F.CORE_FAMILIES + (("il",) if self.il_in is not None else ())
+
+    @property
+    def il(self):
+        """The (il_in, il_out) verdict operand, or None."""
+        return None if self.il_in is None else (self.il_in, self.il_out)
+
+    @property
+    def il_dim(self) -> int | None:
+        return None if self.il_in is None else self.il_in.shape[-1] // 2
+
+    @property
     def is_dirty(self) -> bool:
         """Labels carry deletions not yet rebuilt into them."""
         return self.graph.del_epoch > self.label_del_epoch
@@ -145,31 +169,41 @@ class DBLIndex:
               selection: str = "product", leaf_r: int = 0,
               max_iters: int = 256, check: str = "warn",
               plane_repr: str = "bool", families=DEFAULT_FAMILIES,
+              il_dim: int = F.DEFAULT_IL_DIM, il_seed: int = 0,
               device=None) -> "DBLIndex":
         """Alg 1 on ``device`` (default ``"cuda"``).  A build whose
         fixpoints hit ``max_iters`` sets ``saturated``; ``check`` then
         warns ("warn"), raises ``LabelSaturationError`` ("raise") or only
-        records it ("defer")."""
+        records it ("defer").  ``plane_repr="packed"`` runs the OR
+        fixpoints on int32 words (bitwise-equal planes).  ``families``
+        enables plug-in families after the ("dl", "bl") core, each built
+        through its own hooks; ``il_dim``/``il_seed`` parameterise "il"."""
         _check_mode(check)
-        if plane_repr != "bool":
-            raise not_ported(f"plane_repr={plane_repr!r}", "queue 1, item 13")
-        if tuple(families) != DEFAULT_FAMILIES:
-            raise not_ported(f"label families {tuple(families)!r}",
-                             "queue 1, item 12")
+        P.check_plane_repr(plane_repr)
+        plugin_fams = F.plugins(families)
         g = g.to(resolve_device(device))
         landmarks = S.select_landmarks(g, n_cap=n_cap, k=k, method=selection)
         dl_in, dl_out, it_dl = L.build_dl(g, landmarks, n_cap=n_cap, k=k,
-                                          max_iters=max_iters)
+                                          max_iters=max_iters,
+                                          plane_repr=plane_repr)
         sources, sinks = S.leaf_masks(g, n_cap=n_cap, leaf_r=leaf_r)
         bl_in, bl_out, it_bl = L.build_bl(g, sources, sinks, n_cap=n_cap,
                                           k_prime=k_prime,
-                                          max_iters=max_iters)
-        sat = U.saturated(it_dl + it_bl, max_iters)
+                                          max_iters=max_iters,
+                                          plane_repr=plane_repr)
+        iters = it_dl + it_bl
+        il_kw = {}
+        for fam in plugin_fams:
+            p_in, p_out, it_f = fam.build(g, n_cap=n_cap, dim=il_dim,
+                                          seed=il_seed, max_iters=max_iters)
+            il_kw = dict(il_in=p_in, il_out=p_out, il_seed=int(il_seed))
+            iters = iters + it_f
+        sat = U.saturated(iters, max_iters)
         _surface(sat, check, max_iters)
         return DBLIndex(g, landmarks, dl_in, dl_out, bl_in, bl_out,
                         Q.pack_labels(dl_in, dl_out, bl_in, bl_out),
                         sources, sinks, epoch=0,
-                        label_del_epoch=g.del_epoch, saturated=sat)
+                        label_del_epoch=g.del_epoch, saturated=sat, **il_kw)
 
     # ---- queries (Alg 2) --------------------------------------------------
     def query(self, u, v, *, bfs_chunk: int = 64, max_iters: int = 256,
@@ -180,7 +214,8 @@ class DBLIndex:
         if driver == "host":
             return Q.query(self.graph, self.packed, u, v, n_cap=self.n_cap,
                            bfs_chunk=bfs_chunk, max_iters=max_iters,
-                           return_stats=return_stats, dirty=self.is_dirty)
+                           return_stats=return_stats, dirty=self.is_dirty,
+                           il=self.il)
         if driver != "engine":
             raise ValueError(f"unknown driver {driver!r}")
         from repro_torch.serve.engine import engine_for
@@ -192,7 +227,7 @@ class DBLIndex:
         dev = self.device
         return Q.label_verdicts(
             self.packed, torch.as_tensor(u, dtype=torch.int32, device=dev),
-            torch.as_tensor(v, dtype=torch.int32, device=dev))
+            torch.as_tensor(v, dtype=torch.int32, device=dev), il=self.il)
 
     # ---- updates (Alg 3) --------------------------------------------------
     def insert_edges(self, new_src, new_dst, *, max_iters: int = 256,
@@ -201,23 +236,31 @@ class DBLIndex:
         """Batched Alg-3 insert; returns the next snapshot.  ``check`` as in
         ``build``: a fixpoint cut off at ``max_iters`` leaves labels stale,
         so it warns, raises, or ("defer") only sets the sticky
-        ``saturated`` flag."""
+        ``saturated`` flag.  Plug-in families run their insert hooks over
+        the extended graph."""
         _check_mode(check)
-        if plane_repr != "bool":
-            raise not_ported(f"plane_repr={plane_repr!r}", "queue 1, item 13")
         dev = self.device
         ns = torch.as_tensor(np.asarray(new_src, np.int32), device=dev)
         nd = torch.as_tensor(np.asarray(new_dst, np.int32), device=dev)
         g2, dl_in, dl_out, bl_in, bl_out, iters, epoch2 = \
             U.insert_and_update(self.graph, self.dl_in, self.dl_out,
                                 self.bl_in, self.bl_out, ns, nd, self.epoch,
-                                n_cap=self.n_cap, max_iters=max_iters)
+                                n_cap=self.n_cap, max_iters=max_iters,
+                                plane_repr=plane_repr)
+        il_kw = {}
+        for fam in F.plugins(self.families):
+            il_in, il_out, it_f = U.insert_update_plugin(
+                fam.name, g2, self.il_in, self.il_out, ns, nd,
+                n_cap=self.n_cap, max_iters=max_iters)
+            il_kw = dict(il_in=il_in, il_out=il_out)
+            iters = iters + it_f
         sat_now = U.saturated(iters, max_iters)
         _surface(sat_now, check, max_iters)
         return replace(self, graph=g2, dl_in=dl_in, dl_out=dl_out,
                        bl_in=bl_in, bl_out=bl_out,
                        packed=Q.pack_labels(dl_in, dl_out, bl_in, bl_out),
-                       epoch=epoch2, saturated=self.saturated or sat_now)
+                       epoch=epoch2, saturated=self.saturated or sat_now,
+                       **il_kw)
 
     def delete_edges(self, del_src, del_dst) -> "DBLIndex":
         """Tombstone every live edge matching a (src, dst) pair: O(m) mask
@@ -254,11 +297,11 @@ class DBLIndex:
         rebuild's own fixpoints, surfaced by ``check`` as in ``build``."""
         if mode not in ("full", "delta", "auto"):
             raise ValueError(f"unknown rebuild mode {mode!r}")
-        if plane_repr != "bool":
-            raise not_ported(f"plane_repr={plane_repr!r}", "queue 1, item 13")
+        P.check_plane_repr(plane_repr)
         _check_mode(check)
         full_kw = dict(selection=selection, leaf_r=leaf_r,
-                       max_iters=max_iters, compact=compact, check=check)
+                       max_iters=max_iters, compact=compact, check=check,
+                       plane_repr=plane_repr)
         if mode == "full":
             return self._full_rebuild(**full_kw), \
                 {"mode": "full", "reason": "forced"}
@@ -271,17 +314,24 @@ class DBLIndex:
             return self._full_rebuild(**full_kw), \
                 {"mode": "full", "reason": "estimate", "estimate": est}
         idx = self._delta_rebuild(plan, max_iters=max_iters,
-                                  compact=compact, check=check)
+                                  compact=compact, check=check,
+                                  plane_repr=plane_repr)
         reason = "forced" if mode == "delta" else "estimate"
         return idx, {"mode": "delta", "reason": reason, "estimate": est}
 
     def _full_rebuild(self, *, selection: str, leaf_r: int, max_iters: int,
-                      compact: bool, check: str) -> "DBLIndex":
+                      compact: bool, check: str,
+                      plane_repr: str = "bool") -> "DBLIndex":
         g = G.compact(self.graph) if compact else self.graph
+        fam_kw = {}
+        if self.il_in is not None:
+            fam_kw = dict(families=self.families, il_dim=self.il_dim,
+                          il_seed=self.il_seed)
         idx = DBLIndex.build(g, n_cap=self.n_cap, k=self.k,
                              k_prime=self.k_prime, selection=selection,
                              leaf_r=leaf_r, max_iters=max_iters, check=check,
-                             device=self.device)
+                             plane_repr=plane_repr, device=self.device,
+                             **fam_kw)
         return replace(idx, epoch=self.epoch + 1)
 
     def _delta_plan(self, *, selection: str, leaf_r: int) -> dict:
@@ -352,12 +402,14 @@ class DBLIndex:
                 "estimate": estimate}
 
     def _delta_rebuild(self, plan: dict, *, max_iters: int, compact: bool,
-                       check: str) -> "DBLIndex":
+                       check: str, plane_repr: str = "bool") -> "DBLIndex":
         """Execute a delta plan: one fused fixpoint per direction.  With
         fresh columns the pass relaxes the whole live edge set (churned
         lanes rebuild from their seeds in the same rounds); without, it
         relaxes only the live edges into the dirty region, since pushes
-        into clean vertices change nothing."""
+        into clean vertices change nothing.  Plug-in families re-draw their
+        planes from the stored seed over the live edges (for "il" every
+        dimension is churned by a deletion), so delta equals full."""
         g = self.graph
         n_cap, k = self.n_cap, self.k
         live = G.edge_mask(g)
@@ -391,7 +443,7 @@ class DBLIndex:
                                 device=self.device)
             x, it = P.propagate(x, es, ed, el, fr, n_cap=n_cap,
                                 max_iters=max_iters, reverse=reverse,
-                                inplace=True)
+                                plane_repr=plane_repr, inplace=True)
             iters.append(it)
             return x
 
@@ -400,6 +452,13 @@ class DBLIndex:
         x_bwd = run_direction(x_bwd, seed_bwd, fresh_bwd, plan["dirty_bwd"],
                               fr_bwd, True)
         g2 = G.compact(g) if compact else g
+        il_kw = {}
+        for fam in F.plugins(self.families):
+            il_in, il_out, it_f = fam.rebuild(
+                g2, n_cap=n_cap, dim=self.il_dim, seed=self.il_seed,
+                max_iters=max_iters)
+            il_kw = dict(il_in=il_in, il_out=il_out, il_seed=self.il_seed)
+            iters += it_f
         sat = U.saturated(iters, max_iters)
         _surface(sat, check, max_iters)
         dl_in, bl_in = x_fwd[:, :k].contiguous(), x_fwd[:, k:].contiguous()
@@ -409,7 +468,7 @@ class DBLIndex:
                         Q.pack_labels(dl_in, dl_out, bl_in, bl_out),
                         plan["sources"], plan["sinks"],
                         epoch=self.epoch + 1, label_del_epoch=g2.del_epoch,
-                        saturated=sat)
+                        saturated=sat, **il_kw)
 
     # ---- introspection ----------------------------------------------------
     def label_bytes(self) -> int:
@@ -430,7 +489,8 @@ class DBLIndex:
         names (``graph.src``, ``graph.dst``, ``graph.n``, ``graph.m``,
         ``graph.del_at``, ``graph.del_epoch``, ``landmarks``, the four
         planes, ``bl_sources``, ``bl_sinks``, ``epoch``, ``label_del_epoch``,
-        ``saturated``).  The packed words are repacked here; when the dict
+        ``saturated``, and for an "il" index ``il_in``, ``il_out``,
+        ``il_seed``).  The packed words are repacked here; when the dict
         also holds ``packed.<plane>`` (uint32 or int32 words) they must
         equal the repacked words bit for bit."""
         dev = resolve_device(device)
@@ -454,11 +514,16 @@ class DBLIndex:
                 if not np.array_equal(got, want):
                     raise ValueError(f"{key} disagrees with the words "
                                      f"repacked from {name}")
+        il_kw = {}
+        if arrays.get("il_in") is not None:
+            il_kw = dict(il_in=t("il_in", np.int32),
+                         il_out=t("il_out", np.int32),
+                         il_seed=int(arrays["il_seed"]))
         return DBLIndex(g, t("landmarks", np.int32), *planes.values(), packed,
                         t("bl_sources", np.bool_), t("bl_sinks", np.bool_),
                         epoch=int(arrays["epoch"]),
                         label_del_epoch=int(arrays["label_del_epoch"]),
-                        saturated=bool(arrays["saturated"]))
+                        saturated=bool(arrays["saturated"]), **il_kw)
 
     def to_numpy(self) -> dict:
         """Inverse of ``from_numpy``; packed words come out as uint32, the
@@ -477,4 +542,8 @@ class DBLIndex:
                     "epoch": np.int32(self.epoch),
                     "label_del_epoch": np.int32(self.label_del_epoch),
                     "saturated": np.bool_(self.saturated)})
+        if self.il_in is not None:
+            out.update({"il_in": self.il_in.cpu().numpy(),
+                        "il_out": self.il_out.cpu().numpy(),
+                        "il_seed": np.int32(self.il_seed)})
         return out

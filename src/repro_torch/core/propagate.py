@@ -1,22 +1,42 @@
-"""Monotone label-propagation fixpoint (Algorithms 1 and 3), OR monoid on
-bool planes.
+"""Monotone label-propagation fixpoint (Algorithms 1 and 3).
 
 One BFS level is one edge-parallel relaxation: gather the rows of the
-frontier's out-edges, OR them into their heads, and the next frontier is
-the set of rows that changed (the paper's subsumption pruning).  The loop
-ends on an empty frontier or at ``max_iters``.  Each round tests the
+frontier's out-edges, combine them into their heads, and the next frontier
+is the set of rows that changed (the paper's subsumption pruning).  The
+loop ends on an empty frontier or at ``max_iters``.  Each round tests the
 frontier on the host, so it costs one device sync; that is what a CUDA
 graph could remove later.
 
-Segment-OR of 0/1 rows is a segment-max: ``index_reduce_(..., "amax")`` on
-uint8, exact because OR does not depend on order.  Only the edges whose
-source is on the frontier take part in a round; the others add nothing.
+Two monoids: ``"or"`` on 0/1 uint8 planes (DL/BL), a segment-max through
+``index_reduce_(..., "amax")``, and ``"min"`` on int32 rank planes (the
+interval family), ``index_reduce_(..., "amin")``; both exact because OR and
+MIN do not depend on order.  Only the edges whose source is on the
+frontier take part in a round; the others add the identity.
+
+Two plane representations drive the OR monoid: ``plane_repr="bool"`` the
+uint8 planes above, ``"packed"`` the same fixpoint on (n_cap, W) int32
+words, 32 lanes a word: pack at entry, one dst-argsort hoisted out of the
+loop, per round a gather, ``bitset.sorted_segment_or`` and a word OR,
+unpack at exit.  Word equality is lane equality (pad bits stay zero), so
+the frontier, the round count and the saturation report equal the bool
+path's.  The MIN monoid has no packed form.
+
 Gathers clamp and scatters drop ids outside ``[0, n_cap)``, as the
 reference's do.
 """
 from __future__ import annotations
 
 import torch
+
+from . import bitset
+
+PLANE_REPRS = ("bool", "packed")
+
+
+def check_plane_repr(plane_repr: str) -> None:
+    if plane_repr not in PLANE_REPRS:
+        raise ValueError(
+            f"plane_repr must be 'bool' or 'packed', got {plane_repr!r}")
 
 
 def segment_or(base: torch.Tensor, rows: torch.Tensor,
@@ -32,35 +52,73 @@ def segment_or(base: torch.Tensor, rows: torch.Tensor,
     return base
 
 
+def _propagate_packed(labels, src, dst, live, frontier, n_cap, max_iters):
+    """OR fixpoint on (n_cap, W) int32 word planes; bool planes in and
+    out.  The dst-argsort is hoisted out of the loop; each round relaxes
+    the frontier's edges, which stay dst-sorted when selected, so the
+    scan takes as many steps as that round's longest in-edge run needs."""
+    k = labels.shape[-1]
+    words = bitset.pack(labels)
+    mask = bitset.pad_mask(k, labels.device)
+    order = torch.argsort(dst)
+    src_s, dst_s, live_s = src[order], dst[order], live[order]
+    it = 0
+    while it < max_iters and bool(frontier.any()):
+        eidx = torch.nonzero(frontier[src_s] & live_s).squeeze(1)
+        ed = dst_s[eidx]
+        agg = bitset.sorted_segment_or(words[src_s[eidx]], ed, n_cap)
+        new = (words | agg) & mask
+        frontier = (new != words).any(-1)
+        words = new
+        it += 1
+    if bool(frontier.any()):
+        it = max_iters + 1
+    return bitset.unpack(words, k).to(labels.dtype), it
+
+
 def propagate(labels: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               live: torch.Tensor, frontier: torch.Tensor, *, n_cap: int,
-              max_iters: int = 256, reverse: bool = False,
+              monoid: str = "or", max_iters: int = 256,
+              reverse: bool = False, plane_repr: str = "bool",
               inplace: bool = False) -> tuple[torch.Tensor, int]:
-    """Run the OR fixpoint.  Returns (labels, iters).
+    """Run the fixpoint.  Returns (labels, iters).
 
     ``iters`` is the number of rounds run, except that a loop cut off at
     ``max_iters`` with the frontier still live reports ``max_iters + 1``,
     so that a truncated fixpoint (stale labels) is told apart from one that
     converged in exactly ``max_iters`` rounds.
 
-    labels   : (n_cap, k) uint8 0/1 plane (copied unless ``inplace``).
+    labels   : (n_cap, k) uint8 0/1 plane for ``"or"``, int32 for
+               ``"min"`` (copied unless ``inplace``; the packed path
+               always returns a new plane).
     src, dst : (m_cap,) int32 edge endpoints; ``reverse=True`` pushes dst->src.
     live     : (m_cap,) bool live-edge mask.
     frontier : (n_cap,) bool initial changed set (seeds).
+    plane_repr : ``"packed"`` runs the OR fixpoint on int32 words, bitwise
+               equal to ``"bool"`` including ``iters``.
     """
+    check_plane_repr(plane_repr)
+    if monoid not in ("or", "min"):
+        raise ValueError(f"unknown monoid {monoid!r}")
+    if plane_repr == "packed" and monoid != "or":
+        raise ValueError("plane_repr='packed' supports the OR monoid only")
     if reverse:
         src, dst = dst, src
-    labels = labels if inplace else labels.clone()
     src = src.clamp(0, n_cap - 1).long()
     live = live & (dst >= 0) & (dst < n_cap)
     dst = dst.long()
     frontier = frontier.to(torch.bool)
+    if plane_repr == "packed":
+        return _propagate_packed(labels, src, dst, live, frontier, n_cap,
+                                 max_iters)
+    labels = labels if inplace else labels.clone()
+    reduce = "amax" if monoid == "or" else "amin"
     it = 0
     while it < max_iters and bool(frontier.any()):
         eidx = torch.nonzero(frontier[src] & live).squeeze(1)
         es, ed = src[eidx], dst[eidx]
         old = labels[ed]
-        labels.index_reduce_(0, ed, labels[es], "amax", include_self=True)
+        labels.index_reduce_(0, ed, labels[es], reduce, include_self=True)
         changed = torch.zeros(n_cap, dtype=torch.bool, device=labels.device)
         changed[ed] = (labels[ed] != old).any(-1)
         frontier = changed
@@ -102,17 +160,48 @@ def push_boundary(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
 
 
 def seed_scatter_or(base: torch.Tensor, values: torch.Tensor,
-                    at: torch.Tensor, n_cap: int, *, inplace: bool = False
+                    at: torch.Tensor, n_cap: int, *,
+                    plane_repr: str = "bool", inplace: bool = False
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """OR ``values[i]`` (rows, (b, k)) into ``base`` at vertex ``at[i]``
     (in place when ``inplace``).  Returns (new_base, frontier), the
-    frontier marking rows that changed."""
-    new = base if inplace else base.clone()
+    frontier marking rows that changed.  ``plane_repr="packed"`` scatters
+    word rows (``bitset.scatter_or``), bitwise equal."""
+    check_plane_repr(plane_repr)
     at = at.long()
+    if plane_repr == "packed":
+        k = base.shape[-1]
+        base_w = bitset.pack(base)
+        new_w = bitset.scatter_or(base_w, bitset.pack(values), at)
+        frontier = (new_w != base_w).any(-1)
+        new = bitset.unpack(new_w, k).to(base.dtype)
+        if inplace:
+            new = base.copy_(new)
+        return new, frontier
+    new = base if inplace else base.clone()
     keep = (at >= 0) & (at < n_cap)
     at_k = at[keep]
     old = new[at_k]
     segment_or(new, values, at)
     frontier = torch.zeros(n_cap, dtype=torch.bool, device=base.device)
     frontier[at_k] = (new[at_k] != old).any(-1)
+    return new, frontier
+
+
+def seed_scatter_min(base: torch.Tensor, values: torch.Tensor,
+                     at: torch.Tensor, n_cap: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """MIN twin of ``seed_scatter_or`` for int32 interval planes:
+    ``base[at[i]] = min(base[at[i]], values[i])`` row-wise, ids outside
+    ``[0, n_cap)`` dropped.  Returns (new_base, frontier), the frontier
+    marking the rows whose value fell."""
+    new = base.clone()
+    at = at.long()
+    keep = (at >= 0) & (at < n_cap)
+    at_k = at[keep]
+    if at_k.numel():
+        new.index_reduce_(0, at_k, values[keep].to(base.dtype), "amin",
+                          include_self=True)
+    frontier = torch.zeros(n_cap, dtype=torch.bool, device=base.device)
+    frontier[at_k] = (new[at_k] != base[at_k]).any(-1)
     return new, frontier

@@ -21,14 +21,18 @@ import torch
 
 from . import bitset
 from .graph import Graph, edge_mask
+from .interval import il_negative
 
 #: per-lane edge-count-cutoff sentinel, >= any reachable edge count: marks
 #: a lane (or a padding lane) as always fresh.
 FRESH_CUT = 2**31 - 1
 
-#: element types of the BFS frontier's segment-max operand; both give
-#: bitwise-identical hits.
-FRONTIER_DTYPES = {"int8": torch.int8, "int32": torch.int32}
+#: element types of the BFS frontier: "int8"/"int32" for the segment-max
+#: operand of the lane-wise loop, "packed" for the loop on int32 words (32
+#: query lanes a word, ``_pruned_bfs_packed``); all give bitwise-identical
+#: hits.
+FRONTIER_DTYPES = {"int8": torch.int8, "int32": torch.int32,
+                   "packed": torch.int32}
 
 
 @dataclass
@@ -78,11 +82,6 @@ def gather_il_rows(il, u: torch.Tensor, v: torch.Tensor):
         return None
     il_in, il_out = il
     return (rows(il_out, u), rows(il_out, v), rows(il_in, u), rows(il_in, v))
-
-
-def il_negative(ilo_u, ilo_v, ili_u, ili_v) -> torch.Tensor:
-    """(Q,) bool interval containment violation from gathered rows."""
-    return (ilo_u > ilo_v).any(-1) | (ili_v > ili_u).any(-1)
 
 
 def verdict_parts_rows(r: RowBlocks):
@@ -193,27 +192,77 @@ def il_violation_plane(il, v: torch.Tensor) -> torch.Tensor:
 
 
 def _admit_plane(p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
-                 n_cap: int, dl_on: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 n_cap: int, dl_on: torch.Tensor | None = None,
+                 il=None) -> torch.Tensor:
     """(n_cap, Qc) bool: vertices x admissible in query q's BFS.
 
     admit = BL_in(x) ⊆ BL_in(v_q) ∧ BL_out(v_q) ⊆ BL_out(x)
             ∧ ¬(DL_out(u_q) ∩ DL_in(x) ≠ ∅)
     ``dl_on`` (Qc,) gates the DL term per lane (off for epoch-stale or
-    deletion-stale lanes)."""
+    deletion-stale lanes).  ``il`` = (il_in, il_out) adds ¬IL_Violate(x,
+    v_q)."""
     c1 = bitset.subset(p.bl_in[:, None, :], rows(p.bl_in, v)[None, :, :])
     c2 = bitset.subset(rows(p.bl_out, v)[None, :, :], p.bl_out[:, None, :])
     d = bitset.intersect_any(rows(p.dl_out, u)[None, :, :],
                              p.dl_in[:, None, :])
     if dl_on is not None:
         d = d & dl_on[None, :]
-    return c1 & c2 & ~d
+    admit = c1 & c2 & ~d
+    if il is not None:
+        admit = admit & ~il_violation_plane(il, v)
+    return admit
+
+
+def _pruned_bfs_packed(g: Graph, v: torch.Tensor, admit: torch.Tensor,
+                       frontier: torch.Tensor, m_cut, *, n_cap: int,
+                       max_iters: int) -> torch.Tensor:
+    """The lane-wise loop of ``pruned_bfs`` on (n_cap, ceil(Qc/32)) int32
+    words: gather the frontier words along live (and, per lane, cut-
+    admitted) edges, segment-OR them by head, gate by admit, visited and
+    hit.  The same rounds, the same host check per round, so the hits are
+    bitwise equal.  The dst-argsort and the packed per-edge cutoff are
+    hoisted out of the loop."""
+    dev = v.device
+    qc = v.shape[0]
+    lane_mask = bitset.pad_mask(qc, dev)
+    admit_w = bitset.pack(admit)
+    live = edge_mask(g) & (g.dst >= 0) & (g.dst < n_cap)
+    order = torch.argsort(g.dst)
+    src_s = g.src[order].clamp(0, n_cap - 1).long()
+    dst_s = g.dst[order].long()
+    live_s = live[order]
+    cut_ws = None
+    if m_cut is not None and bool((m_cut < g.m).any()):
+        # lanes whose cutoff reaches g.m see every live edge: the packed
+        # cut is all ones there, and needed only when some lane is stale
+        cut_ws = bitset.pack(order[:, None] < m_cut[None, :].long())
+    fw = bitset.pack(frontier)
+    vw = fw
+    hw = torch.zeros_like(lane_mask)
+    lanes = torch.arange(qc, device=dev)
+    lw, lb = lanes // bitset.WORD, lanes % bitset.WORD
+    v_safe = v.clamp(0, n_cap - 1).long()
+    it = 0
+    while it < max_iters and bool((fw != 0).any()
+                                  & ((hw & lane_mask) != lane_mask).any()):
+        eidx = torch.nonzero((fw != 0).any(1)[src_s] & live_s).squeeze(1)
+        contrib = fw[src_s[eidx]]
+        if cut_ws is not None:
+            contrib = contrib & cut_ws[eidx]
+        nw = bitset.sorted_segment_or(contrib, dst_s[eidx], n_cap)
+        nw = nw & admit_w & ~vw & ~hw[None, :]
+        hits = ((nw[v_safe, lw] >> lb) & 1) != 0
+        hw = hw | bitset.pack(hits)
+        vw = vw | nw
+        fw = nw
+        it += 1
+    return bitset.unpack(hw, qc)
 
 
 def pruned_bfs(g: Graph, p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
                admit: torch.Tensor | None = None,
                m_cut: torch.Tensor | None = None,
-               dl_clean: bool | None = None, *, n_cap: int,
+               dl_clean: bool | None = None, il=None, *, n_cap: int,
                max_iters: int = 256, frontier_dtype: str = "int8"
                ) -> torch.Tensor:
     """(Qc,) bool: resolve unknown queries by label-pruned BFS lanes.
@@ -224,9 +273,13 @@ def pruned_bfs(g: Graph, p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
     only edges with append index < m_cut[q], i.e. the edge set of its
     snapshot.  Stale lanes (m_cut < g.m) drop the DL prune.  ``dl_clean``
     False (labels carry un-rebuilt deletions) drops it for every lane.
+    ``il`` (il_in, il_out) adds the interval prune to the admit plane; it
+    needs no edge-count gate but shares the ``dl_clean`` gate (it is not
+    deletion-sound, so a dirty dispatch drops it).
 
     The loop tests the frontier on the host once per round; only edges
-    whose source row is on the frontier take part.
+    whose source row is on the frontier take part.  ``frontier_dtype``
+    "packed" runs the loop on words (``_pruned_bfs_packed``).
     """
     ftype = FRONTIER_DTYPES[frontier_dtype]
     dev = u.device
@@ -239,11 +292,14 @@ def pruned_bfs(g: Graph, p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
     else:
         dl_on = (m_cut >= g.m) & clean
     if admit is None:
-        admit = _admit_plane(p, u, v, n_cap, dl_on)
+        admit = _admit_plane(p, u, v, n_cap, dl_on, il if clean else None)
     elif admit.dtype != torch.bool:
         admit = admit > 0
     ids = torch.arange(n_cap, device=dev)
     frontier = ids[:, None] == u[None, :].long()        # (n_cap, Qc)
+    if frontier_dtype == "packed":
+        return _pruned_bfs_packed(g, v, admit, frontier, m_cut, n_cap=n_cap,
+                                  max_iters=max_iters)
     visited = frontier.clone()
     hit = torch.zeros(qc, dtype=torch.bool, device=dev)
     lanes = torch.arange(qc, device=dev)
@@ -271,13 +327,15 @@ def pruned_bfs(g: Graph, p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
 
 def query(g: Graph, p: PackedLabels, u, v, *, n_cap: int,
           bfs_chunk: int = 64, max_iters: int = 256,
-          return_stats: bool = False, dirty: bool = False):
+          return_stats: bool = False, dirty: bool = False, il=None):
     """Full Alg 2 over a query batch: the host-side reference driver.
 
     Verdicts go to the host, unknowns are sliced with numpy and resolved
     one padded BFS chunk at a time.  Kept as the differential oracle for
     ``repro_torch.serve.engine.QueryEngine``.  ``dirty=True`` keeps only
-    self-positives and BL negatives from labels and drops the DL prune."""
+    self-positives and BL negatives from labels and drops the DL prune.
+    ``il`` threads the interval planes through both phases; the dirty path
+    drops them."""
     dev = p.dl_in.device
     u_np = np.asarray(u, np.int32).ravel()
     v_np = np.asarray(v, np.int32).ravel()
@@ -285,8 +343,9 @@ def query(g: Graph, p: PackedLabels, u, v, *, n_cap: int,
     vv_all = torch.from_numpy(v_np).to(dev)
     if dirty:
         verdicts = cut_verdicts(p, uu_all, vv_all, 1, 0, False)
+        il = None
     else:
-        verdicts = label_verdicts(p, uu_all, vv_all)
+        verdicts = label_verdicts(p, uu_all, vv_all, il=il)
     verdicts = verdicts.cpu().numpy()
     answers = verdicts == 1
     unknown = np.flatnonzero(verdicts == -1)
@@ -296,8 +355,8 @@ def query(g: Graph, p: PackedLabels, u, v, *, n_cap: int,
         pad = bfs_chunk - idx.size
         uu = torch.from_numpy(np.pad(u_np[idx], (0, pad))).to(dev)
         vv = torch.from_numpy(np.pad(v_np[idx], (0, pad))).to(dev)
-        hit = pruned_bfs(g, p, uu, vv, dl_clean=dl_clean, n_cap=n_cap,
-                         max_iters=max_iters).cpu().numpy()
+        hit = pruned_bfs(g, p, uu, vv, dl_clean=dl_clean, il=il,
+                         n_cap=n_cap, max_iters=max_iters).cpu().numpy()
         answers[idx] = hit[:idx.size]
     if return_stats:
         rho = 1.0 - unknown.size / max(1, verdicts.size)

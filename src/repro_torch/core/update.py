@@ -18,25 +18,27 @@ from .propagate import propagate, seed_scatter_or
 
 def insert_seeds(plane: torch.Tensor, new_src: torch.Tensor,
                  new_dst: torch.Tensor, *, n_cap: int, reverse: bool = False,
-                 inplace: bool = False):
+                 plane_repr: str = "bool", inplace: bool = False):
     """Alg-3 seeding of one plane: for each inserted edge (u, v) OR
     ``plane[u]`` into ``plane[v]`` (roles swapped for ``reverse``; in place
     when ``inplace``).  Returns (seeded plane, changed-row frontier)."""
     at_src, at_dst = (new_dst, new_src) if reverse else (new_src, new_dst)
     gathered = plane[at_src.clamp(0, n_cap - 1).long()]
-    return seed_scatter_or(plane, gathered, at_dst, n_cap, inplace=inplace)
+    return seed_scatter_or(plane, gathered, at_dst, n_cap,
+                           plane_repr=plane_repr, inplace=inplace)
 
 
 def insert_and_update(g: G.Graph, dl_in, dl_out, bl_in, bl_out,
                       new_src: torch.Tensor, new_dst: torch.Tensor,
                       epoch: int = 0, *, n_cap: int, max_iters: int = 256,
-                      inplace: bool = False):
+                      plane_repr: str = "bool", inplace: bool = False):
     """Returns (graph', dl_in', dl_out', bl_in', bl_out', iters [4], epoch').
 
     Each call is one snapshot epoch (``epoch' = epoch + 1``); with
     append-only edges, (epoch, m) names the exact edge set of a snapshot.
     The input planes are updated in place when ``inplace`` (the serving
-    engine's ``donate``), else left as they were."""
+    engine's ``donate``), else left as they were.  ``plane_repr="packed"``
+    runs the seeding and the fixpoints on int32 words (bitwise equal)."""
     g2 = G.insert_edges(g, new_src, new_dst)
     live = G.edge_mask(g2)
     new_src = new_src.to(device=g2.device, dtype=torch.int32)
@@ -45,10 +47,11 @@ def insert_and_update(g: G.Graph, dl_in, dl_out, bl_in, bl_out,
     def run(plane, reverse):
         seeded, frontier = insert_seeds(plane, new_src, new_dst,
                                         n_cap=n_cap, reverse=reverse,
+                                        plane_repr=plane_repr,
                                         inplace=inplace)
         return propagate(seeded, g2.src, g2.dst, live, frontier,
                          n_cap=n_cap, max_iters=max_iters, reverse=reverse,
-                         inplace=True)
+                         plane_repr=plane_repr, inplace=True)
 
     dl_in2, it0 = run(dl_in, False)
     dl_out2, it1 = run(dl_out, True)
@@ -56,6 +59,17 @@ def insert_and_update(g: G.Graph, dl_in, dl_out, bl_in, bl_out,
     bl_out2, it3 = run(bl_out, True)
     return g2, dl_in2, dl_out2, bl_in2, bl_out2, [it0, it1, it2, it3], \
         epoch + 1
+
+
+def insert_update_plugin(family: str, g2: G.Graph, p_in, p_out,
+                         new_src: torch.Tensor, new_dst: torch.Tensor, *,
+                         n_cap: int, max_iters: int = 256):
+    """Alg-3 maintenance of one plug-in label family (``core.families``):
+    its ``insert_update`` hook.  ``g2`` already holds the new edges (run
+    this after ``insert_and_update``).  Returns (p_in', p_out', iters)."""
+    from . import families as F
+    return F.get(family).insert_update(g2, p_in, p_out, new_src, new_dst,
+                                       n_cap=n_cap, max_iters=max_iters)
 
 
 def delete_and_mark(g: G.Graph, del_src, del_dst, epoch: int = 0):

@@ -26,11 +26,19 @@ pruned BFS.  The engine keeps that pipeline on the device:
   auto) and re-binds the engine to a new lineage;
 - **streamed kernels**: ``streaming=True`` routes the verdicts and (with
   ``bfs_kernel``) the admit planes through the streamed kernels; on the
-  CPU the ``"torch"`` backend takes their plain versions.
+  CPU the ``"torch"`` backend takes their plain versions.  An index with
+  the "il" family takes the grid verdict kernel instead (the streamed one
+  has no interval operands), with one ``StreamILFallbackWarning`` per
+  engine;
+- **label families and word planes**: an "il" index adds its interval
+  prune to the verdicts, the attribution's "il" column and the admit
+  planes (off while the labels are dirty), and its insert hook runs with
+  every insert; ``plane_repr="packed"`` runs the insert and rebuild
+  fixpoints on int32 words and ``frontier_dtype="packed"`` the residue BFS
+  on words of 32 query lanes, all bitwise equal to the defaults.
 
-This slice serves the replicated layout with bool planes.  The query-axis
-mesh, vertex sharding, packed planes and the AOT cache raise
-``NotImplementedError``.
+The layout is replicated (one device).  The query-axis mesh, vertex
+sharding and the AOT cache raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ import torch
 
 from repro_torch.core import query as Q
 from repro_torch.core import update as U
+from repro_torch.core.propagate import check_plane_repr
 from repro_torch.core.dbl import (DBLIndex, LabelSaturationWarning,
                                   _saturation_message, not_ported)
 from repro_torch.device import resolve_device
@@ -189,10 +198,7 @@ class QueryEngine:
                 "streaming=True would be dead there")
         if vertex_mesh is not None:
             raise not_ported("the vertex-sharded layout", "queue 1, item 14")
-        if plane_repr != "bool":
-            raise not_ported(f"plane_repr={plane_repr!r}", "queue 1, item 13")
-        if frontier_dtype == "packed":
-            raise not_ported("frontier_dtype='packed'", "queue 1, item 13")
+        check_plane_repr(plane_repr)
         if frontier_dtype not in Q.FRONTIER_DTYPES:
             raise ValueError(f"unknown frontier dtype {frontier_dtype!r}; "
                              f"expected one of {list(Q.FRONTIER_DTYPES)}")
@@ -221,6 +227,7 @@ class QueryEngine:
         self._stream_il_warned = False
         self.consistency = select_consistency(consistency)
         self.frontier_dtype = frontier_dtype
+        self.plane_repr = plane_repr
         self.out_dtype = out_dtype
         self._out_torch = torch.int8 if out_dtype == "int8" else torch.int32
         self.flush_policy = flush_policy
@@ -318,8 +325,9 @@ class QueryEngine:
     def label_phase(self, p: Q.PackedLabels, u: torch.Tensor,
                     v: torch.Tensor, d_stale: bool, il=None):
         """Verdicts, attribution counts and the compaction of unknown
-        lanes.  ``il`` is the optional (il_in, il_out) interval operand of
-        the verdicts (no ported index carries one yet).  Compaction is an
+        lanes.  ``il`` is the index's optional (il_in, il_out) interval
+        operand: a negative rule on clean labels, nothing while dirty, and
+        the attribution's "il" column.  Compaction is an
         O(Q) cumsum/scatter, not a sort: unknown lanes keep submission
         order at slots [0, nu), known lanes fill the tail, and endpoints
         are scattered straight to their slots."""
@@ -349,33 +357,51 @@ class QueryEngine:
         against the newest labels (verdict 0 → False, surviving +1 → True;
         stale-lane positives were downgraded by the cutoff), then run the
         cutoff BFS on the lanes still unknown.  Dead lanes (padding)
-        carry ``u = n_cap`` and never extend the BFS."""
-        g, p = index.graph, index.packed
+        carry ``u = n_cap`` and never extend the BFS.  An "il" index adds
+        its prune to the re-check and, on clean labels, to the admit
+        planes."""
+        g, p, il = index.graph, index.packed, index.il
         n_cap = index.n_cap
         live_lane = uu < n_cap
         uu_safe = uu.clamp(max=n_cap - 1)
-        verd = self._verdicts(p, uu_safe, vv, m_cut, g.m, d_stale)
+        verd = self._verdicts(p, uu_safe, vv, m_cut, g.m, d_stale, il)
         need = live_lane & (verd == -1)
         uu2 = torch.where(need, uu, torch.full_like(uu, n_cap))
         admit = None
         if self.bfs_kernel:
             admit = admit_plane(p, uu2.clamp(max=n_cap - 1), vv, m_cut, g.m,
                                 *self._d_cut(uu, d_stale),
+                                None if d_stale else il,
                                 out_dtype=torch.int8,
                                 device=self.device.type,
                                 streaming=self.streaming)
-        hit = Q.pruned_bfs(g, p, uu2, vv, admit, m_cut, not d_stale,
+        hit = Q.pruned_bfs(g, p, uu2, vv, admit, m_cut, not d_stale, il,
                            n_cap=n_cap, max_iters=self.max_iters,
                            frontier_dtype=self.frontier_dtype)
         return ((verd == 1) & live_lane) | hit
 
-    def insert_impl(self, idx: DBLIndex, ns, nd):
+    def insert_impl(self, idx: DBLIndex, ns, nd) -> tuple[DBLIndex, bool]:
+        """Alg 3 on the bound index: the fused DL/BL update, then the "il"
+        hook over the extended graph.  Returns (next index, whether a
+        fixpoint saturated)."""
         g2, a, b, c, d, iters, epoch2 = U.insert_and_update(
             idx.graph, idx.dl_in, idx.dl_out, idx.bl_in, idx.bl_out, ns, nd,
             self.epoch, n_cap=idx.n_cap, max_iters=self.max_iters,
-            inplace=self.donate)
+            plane_repr=self.plane_repr, inplace=self.donate)
+        il_kw = {}
+        if idx.il_in is not None:
+            il_in, il_out, it_il = U.insert_update_plugin(
+                "il", g2, idx.il_in, idx.il_out, ns, nd, n_cap=idx.n_cap,
+                max_iters=self.max_iters)
+            il_kw = dict(il_in=il_in, il_out=il_out)
+            iters = iters + it_il
         sat = U.saturated(iters, self.max_iters)
-        return g2, a, b, c, d, Q.pack_labels(a, b, c, d), epoch2, sat
+        # direct field write: an insert advances the epoch within the
+        # current lineage (the property setter would start a new one)
+        nxt = replace(idx, graph=g2, dl_in=a, dl_out=b, bl_in=c, bl_out=d,
+                      packed=Q.pack_labels(a, b, c, d), epoch=epoch2,
+                      saturated=idx.saturated or sat, **il_kw)
+        return nxt, sat
 
     def _chunk_buckets(self):
         sizes, c = [], 16
@@ -412,7 +438,7 @@ class QueryEngine:
         self._check_device(index)
         uj, vj, q = self._pad_queries(u, v)
         answers, order, u_c, v_c, n_unknown, counts = self.label_phase(
-            index.packed, uj, vj, index.is_dirty)
+            index.packed, uj, vj, index.is_dirty, il=index.il)
         if self._index is not None and index is self._index:
             tag = dict(lineage=self._lineage, epoch=self.epoch,
                        m_at_submit=self._m_now)
@@ -578,18 +604,11 @@ class QueryEngine:
         callers must not keep using the old index."""
         if self._index is None:
             raise ValueError("engine has no bound index; use run()")
-        idx = self._index
         ns = torch.from_numpy(np.asarray(new_src, np.int32).ravel()).to(
             self.device)
         nd = torch.from_numpy(np.asarray(new_dst, np.int32).ravel()).to(
             self.device)
-        g2, a, b, c, d, packed, epoch2, sat = self.insert_impl(idx, ns, nd)
-        # direct field write: an insert advances the epoch within the
-        # current lineage (the property setter would start a new one)
-        self._index = DBLIndex(
-            g2, idx.landmarks, a, b, c, d, packed, idx.bl_sources,
-            idx.bl_sinks, epoch=epoch2, label_del_epoch=idx.label_del_epoch,
-            saturated=idx.saturated or sat)
+        self._index, sat = self.insert_impl(self._index, ns, nd)
         self._sat_flags.append(sat)   # surfaced at flush boundaries
         self.epoch += 1
         self._m_now += int(ns.numel())
@@ -624,6 +643,7 @@ class QueryEngine:
         if self._index is None:
             raise ValueError("engine has no bound index; use run()")
         build_kw.setdefault("max_iters", self.max_iters)
+        build_kw.setdefault("plane_repr", self.plane_repr)
         new_idx, info = self._index.rebuild_info(**build_kw)
         self.index = new_idx      # property setter: drain + new lineage
         self.stats.rebuilds += 1

@@ -332,6 +332,11 @@ def test_engine_flush_policies():
                                                 batches[0][1]])
     with pytest.raises(ValueError):
         TEngine(tidx, flush_policy="sometimes")
+    # packed planes and frontiers construct; the sharded layout is a later
+    # slice and names its queue entry
     for kw in (dict(plane_repr="packed"), dict(frontier_dtype="packed")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEngine(tidx, **kw)
+        TEngine(tidx, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TEngine(tidx, vertex_mesh=object())
+    with pytest.raises(ValueError):
+        TEngine(tidx, plane_repr="words")
