@@ -59,13 +59,32 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    and takes the grid verdict kernel and the streamed admit kernel.  Then
    the interval AND's time and a profiled round.  Launch counts add to
    the grid kernels' and the streamed admit kernel's.
-7. the ``kernels`` summary line, then the ``ok`` line last.
+7. sharded: the vertex-sharded layout (``repro_torch.core.distributed``)
+   through the LJ lifecycle at full width: ``build_vertex_sharded``
+   (k = k' = 64, ``max_iters=64``), two inserts of 100 edges, a delete of
+   500 single-slot pairs, and ``rebuild_vertex_sharded`` in "delta" and in
+   "full" mode, with bool planes, with ``plane_repr="packed"`` and with
+   ``families=("dl", "bl", "il"), il_dim=4``.  At every step the shard's
+   planes, words, interval planes, landmarks, leaf masks, ``saturated``,
+   the fixpoints' rounds and the rebuild ``info`` dicts must equal the
+   replicated port's on the same card bit for bit.  First as a world of
+   one over NCCL in this process, then as 4 gloo ranks sharing the card
+   (NCCL refuses two ranks on one device), spawned from here with a
+   ``FileStore`` and a timeout, each holding its row block against a
+   replicated index it builds itself; if gloo refuses CUDA tensors, the
+   refusal is printed instead.  Lines ``sharded_world1``,
+   ``sharded_4rank`` (or ``sharded_4rank_refused``) and
+   ``sharded_bytes``.  No kernel is on this path.
+8. the ``kernels`` summary line, then the ``ok`` line last.
 """
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -106,6 +125,13 @@ DEAD_RATIO = 0.001
 #: interval family's knobs
 N_IL_ROUNDS = 4
 IL_FAM = dict(families=("dl", "bl", "il"), il_dim=4, il_seed=0)
+#: the sharded phase: its configurations, insert batches, the ranks of
+#: the gloo world on the one card, and that world's time limit
+SHARDED_CONFIGS = (("bool", {}), ("packed", dict(plane_repr="packed")),
+                   ("il", IL_FAM))
+SHARDED_INSERTS = 2
+SHARDED_RANKS = 4
+SHARDED_TIMEOUT_S = 600
 
 
 def emit(phase, **kw):
@@ -1097,6 +1123,323 @@ def il_packed_phase(dev, card):
     return launches
 
 
+def _sync_time(fn):
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _replicated_rounds(kind, idx, prev=None, ns=None, nd=None):
+    """The replicated port's fixpoint rounds for one lifecycle step, in
+    the sharded order (fused fwd, fused bwd, il in, il out).  A fused
+    direction runs as long as its slower family, so its rounds are the
+    larger of the DL and BL fixpoints'."""
+    from repro_torch.core import graph as G
+    from repro_torch.core import interval as IL
+    from repro_torch.core import labels as L
+    from repro_torch.core import propagate as P
+    from repro_torch.core import update as U
+    n = idx.n_cap
+    if kind == "build":
+        dl = L.build_dl(idx.graph, idx.landmarks, n_cap=n, k=idx.k,
+                        max_iters=64)[2]
+        bl = L.build_bl(idx.graph, idx.bl_sources, idx.bl_sinks, n_cap=n,
+                        k_prime=idx.k_prime, max_iters=64)[2]
+        rounds = [max(dl[0], bl[0]), max(dl[1], bl[1])]
+        if idx.il_in is not None:
+            rounds += IL.build_il(idx.graph, n_cap=n, dim=idx.il_dim,
+                                  seed=idx.il_seed, max_iters=64)[2]
+        return rounds
+    if kind == "insert":
+        it = U.insert_and_update(prev.graph, prev.dl_in, prev.dl_out,
+                                 prev.bl_in, prev.bl_out, ns, nd,
+                                 prev.epoch, n_cap=n, max_iters=64)[5]
+        rounds = [max(it[0], it[2]), max(it[1], it[3])]
+        if prev.il_in is not None:
+            rounds += IL.insert_update_il(idx.graph, prev.il_in,
+                                          prev.il_out, ns, nd, n_cap=n,
+                                          max_iters=64)[2]
+        return rounds
+    # the delta repair: the fused fixpoints over the whole live edge set
+    dp = prev._delta_plan(selection="product", leaf_r=0)
+    g = prev.graph
+    st = L.delta_plane_state(
+        g, prev.dl_in, prev.dl_out, prev.bl_in, prev.bl_out,
+        prev.landmarks, dp["landmarks"], prev.bl_sources, prev.bl_sinks,
+        dp["sources"], dp["sinks"], dp["dirty_fwd"], dp["dirty_bwd"],
+        n_cap=n, k=prev.k, k_prime=prev.k_prime)
+    live = G.edge_mask(g)
+    rounds = []
+    for rev, x, fresh, seed, fr in ((False, st[0], st[2], st[4], st[6]),
+                                    (True, st[1], st[3], st[5], st[7])):
+        fr = fr | (seed.bool() & fresh[None, :]).any(1)
+        rounds.append(P.propagate(x, g.src, g.dst, live, fr, n_cap=n,
+                                  max_iters=64, reverse=rev)[1])
+    if idx.il_in is not None:
+        rounds += IL.build_il(idx.graph, n_cap=n, dim=idx.il_dim,
+                              seed=idx.il_seed, max_iters=64)[2]
+    return rounds
+
+
+def _hold_shard(step, mesh, shard, rep, rounds, want_rounds, info=None,
+                want_info=None):
+    """The shard's row block and whole fields against the replicated
+    index, bit for bit; raises on the first difference."""
+    import torch
+    from repro_torch.core import planes as PL
+    n_loc = rep.n_cap // mesh.size
+    rows = slice(mesh.rank * n_loc, (mesh.rank + 1) * n_loc)
+    pairs = [(f, getattr(shard, f), getattr(rep, f)[rows])
+             for f in ("dl_in", "dl_out", "bl_in", "bl_out")]
+    pairs += [(f"packed.{f}", getattr(shard.packed, f),
+               getattr(rep.packed, f)[rows])
+              for f in ("dl_in", "dl_out", "bl_in", "bl_out")]
+    if rep.il_in is not None:
+        pairs += [(f, getattr(shard, f), getattr(rep, f)[rows])
+                  for f in ("il_in", "il_out")]
+    pairs += [(f, getattr(shard, f), getattr(rep, f))
+              for f in ("landmarks", "bl_sources", "bl_sinks")]
+    for f, a, b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"sharded {step}: {f} differs from the "
+                                 f"replicated port's (rank {mesh.rank})")
+    same = {"saturated": (shard.saturated, rep.saturated),
+            "m": (shard.graph.m, rep.graph.m),
+            "epoch": (shard.epoch, rep.epoch),
+            "rounds": ([int(r) for r in rounds],
+                       [int(r) for r in want_rounds]),
+            "info": (info, want_info),
+            "bytes": (PL.per_device_label_bytes(shard) * mesh.size,
+                      PL.per_device_label_bytes(rep))}
+    for f, (a, b) in same.items():
+        if a != b:
+            raise AssertionError(f"sharded {step}: {f} {a} != replicated "
+                                 f"{b} (rank {mesh.rank})")
+    return [int(r) for r in rounds]
+
+
+def sharded_lifecycle(mesh, extra):
+    """The LJ lifecycle on this rank's shard beside the replicated port on
+    the same card: build, SHARDED_INSERTS inserts, a delete of DELETES
+    single-slot pairs, the delta and the full rebuild.  Every step is held
+    bit for bit (``_hold_shard``).  Returns the steps' times (ms, sharded
+    and replicated), rounds and the delta rebuild's info."""
+    import torch
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.core import distributed as D
+    from repro_torch.core import planes as PL
+    from repro_torch.graphs.generators import table2_graph
+
+    dev = mesh.device
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    m = int(src.size)
+    rng = np.random.default_rng(5)
+    g = make_graph(src, dst, n, m_cap=m + SHARDED_INSERTS * INSERTS,
+                   device=dev)
+    kw = dict(max_iters=64, check="raise")
+    pr = {k: v for k, v in extra.items() if k == "plane_repr"}
+    out = {"ms": {}, "replicated_ms": {}, "rounds": {}}
+
+    def step(name, shard_fn, rep_fn):
+        rounds = []
+        shard, out["ms"][name] = _sync_time(lambda: shard_fn(rounds))
+        rep, out["replicated_ms"][name] = _sync_time(rep_fn)
+        return shard, rep, rounds
+
+    (shard, plan), rep, rounds = step(
+        "build",
+        lambda r: D.build_vertex_sharded(g, mesh, n_cap=n, k=64,
+                                         k_prime=64, rounds=r, **kw,
+                                         **extra),
+        lambda: DBLIndex.build(g, n_cap=n, k=64, k_prime=64, device=dev,
+                               **kw, **extra))
+    out["rounds"]["build"] = _hold_shard(
+        "build", mesh, shard, rep, rounds, _replicated_rounds("build", rep))
+    # the host's share of a build: the plan alone (both directions'
+    # tables built with numpy and this rank's rows uploaded)
+    _, out["plan_ms"] = _sync_time(
+        lambda: PL.shard_plan(g.src, g.dst, g.m, n, mesh))
+    out["extend_ms"] = []
+    out["halo_rows"] = [int(plan.fwd.h_send.shape[1]),
+                        int(plan.bwd.h_send.shape[1])]
+    out["fwd_bucket_edges"] = int(plan.fwd.e_valid.sum())
+    out["label_bytes"] = [PL.per_device_label_bytes(shard),
+                          PL.per_device_label_bytes(rep)]
+    for b in range(SHARDED_INSERTS):
+        ns = rng.integers(0, n, INSERTS).astype(np.int32)
+        nd = rng.integers(0, n, INSERTS).astype(np.int32)
+        prev = rep
+        out["extend_ms"].append(
+            _sync_time(lambda: PL.extend_plan(plan, ns, nd))[1])
+        (shard, plan, _), rep, rounds = step(
+            f"insert{b}",
+            lambda r: D.insert_vertex_sharded(shard, plan, ns, nd,
+                                              rounds=r, **kw, **pr),
+            lambda: prev.insert_edges(ns, nd, **kw, **pr))
+        out["rounds"][f"insert{b}"] = _hold_shard(
+            f"insert{b}", mesh, shard, rep, rounds,
+            _replicated_rounds("insert", rep, prev, torch.from_numpy(ns)
+                               .to(dev), torch.from_numpy(nd).to(dev)))
+    ls, ld = live_edges(rep.graph)
+    pairs, mult = np.unique(ls.astype(np.int64) * n + ld,
+                            return_counts=True)
+    pick = rng.choice(pairs[mult == 1], DELETES, replace=False)
+    ds, dd = (pick // n).astype(np.int32), (pick % n).astype(np.int32)
+    shard, rep = shard.delete_edges(ds, dd), rep.delete_edges(ds, dd)
+    _hold_shard("delete", mesh, shard, rep, [], [])
+    for mode in ("delta", "full"):
+        (s2, _, info), (r2, want), rounds = step(
+            mode,
+            lambda r: D.rebuild_vertex_sharded(shard, plan, mode=mode,
+                                               rounds=r, **kw, **pr),
+            lambda: rep.rebuild_info(mode=mode, **kw, **pr))
+        kind = "delta" if want["mode"] == "delta" else "build"
+        out["rounds"][mode] = _hold_shard(
+            mode, mesh, s2, r2, rounds,
+            _replicated_rounds(kind, r2, rep), info, want)
+        if mode == "delta":
+            out["delta_info"] = info
+    return out
+
+
+def _sharded_rank(rank, world, store_path, out_dir):
+    """One gloo rank of the 4-rank world on the one card: probe whether
+    gloo carries CUDA tensors, then every configuration's lifecycle."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=SHARDED_TIMEOUT_S))
+    try:
+        mesh = D.vertex_mesh()
+        err = None
+        try:
+            x = torch.arange(2 * world, dtype=torch.int32,
+                             device=mesh.device)
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x)
+            t = torch.ones(1, dtype=torch.int64, device=mesh.device)
+            dist.all_reduce(t)
+            want = torch.tensor([2 * rank, 2 * rank + 1] * world,
+                                dtype=torch.int32)
+            if not torch.equal(y.cpu(), want) or int(t) != world:
+                err = f"gloo gave wrong results on CUDA tensors: {y}, {t}"
+        except Exception as e:          # the refusal is the result
+            err = f"{type(e).__name__}: {e}"
+        ok = torch.tensor([0 if err else 1])
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        result = {"rank": rank, "device": str(mesh.device)}
+        if int(ok) == 0:
+            result["refused"] = err or "another rank's probe failed"
+        else:
+            for name, extra in SHARDED_CONFIGS:
+                result[name] = sharded_lifecycle(mesh, extra)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def _halo_bytes(rows, d, row_bytes):
+    """Bytes one dense halo round moves between ranks, per direction: each
+    ordered pair of ranks ships its whole ``rows``-slot buffer, a row of
+    ``row_bytes`` and a one-byte frontier flag per slot."""
+    return [d * (d - 1) * h * (row_bytes + 1) for h in rows]
+
+
+def sharded_phase(card):
+    """The vertex-sharded lifecycle on the card: a world of one over NCCL
+    in this process, then 4 gloo ranks sharing the card."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+    from repro_torch.core import distributed as D
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="sharded_", dir=build_dir))
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{work}/nccl",
+                                rank=0, world_size=1,
+                                timeout=timedelta(seconds=SHARDED_TIMEOUT_S))
+        try:
+            mesh = D.vertex_mesh()
+            # NCCL sets up its communicator at the first collective
+            one = torch.ones(1, device=mesh.device)
+            _, first_ms = _sync_time(lambda: dist.all_reduce(one))
+            world1 = {name: sharded_lifecycle(mesh, extra)
+                      for name, extra in SHARDED_CONFIGS}
+        finally:
+            dist.destroy_process_group()
+        for name, res in world1.items():
+            emit("sharded_world1", config=name, backend="nccl",
+                 device=str(mesh.device), bitwise=True,
+                 first_collective_ms=first_ms, card=card, **res)
+
+        t = time.perf_counter()
+        ctx = tmp.spawn(_sharded_rank, nprocs=SHARDED_RANKS, join=False,
+                        args=(SHARDED_RANKS, str(work / "gloo"), str(work)))
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t > SHARDED_TIMEOUT_S:
+                    raise AssertionError(
+                        f"the {SHARDED_RANKS}-rank world ran past "
+                        f"{SHARDED_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(SHARDED_RANKS)]
+        refused = [r["refused"] for r in ranks if "refused" in r]
+        bytes_line = {name: {"world1_per_device": world1[name]
+                             ["label_bytes"][0],
+                             "replicated": world1[name]["label_bytes"][1]}
+                      for name, _ in SHARDED_CONFIGS}
+        if refused:
+            emit("sharded_4rank_refused", backend="gloo", ranks=SHARDED_RANKS,
+                 error=refused[0], card=card)
+        else:
+            for name, extra in SHARDED_CONFIGS:
+                res = [r[name] for r in ranks]
+                emit("sharded_4rank", config=name, backend="gloo",
+                     ranks=SHARDED_RANKS, devices=[r["device"]
+                                                   for r in ranks],
+                     bitwise=True, wall_s=time.perf_counter() - t,
+                     ms=[r["ms"] for r in res],
+                     replicated_ms=[r["replicated_ms"] for r in res],
+                     plan_ms=[r["plan_ms"] for r in res],
+                     extend_ms=[r["extend_ms"] for r in res],
+                     rounds=res[0]["rounds"], halo_rows=res[0]["halo_rows"],
+                     bucket_edges=[r["fwd_bucket_edges"] for r in res],
+                     card=card)
+                bytes_line[name].update(
+                    ranks4_per_device=[r["label_bytes"][0] for r in res],
+                    halo_rows_4rank=res[0]["halo_rows"],
+                    # OR rows: 128 uint8 lanes, or four int32 words
+                    halo_bytes_per_round_4rank=_halo_bytes(
+                        res[0]["halo_rows"], SHARDED_RANKS,
+                        16 if extra.get("plane_repr") == "packed" else 128),
+                    halo_bytes_per_round_world1=0)
+                if "families" in extra:
+                    # MIN rows: 2 * il_dim int32 ranks
+                    bytes_line[name]["il_halo_bytes_per_round_4rank"] = \
+                        _halo_bytes(res[0]["halo_rows"], SHARDED_RANKS,
+                                    8 * extra["il_dim"])
+                if any(r["label_bytes"][0] * SHARDED_RANKS
+                       != r["label_bytes"][1] for r in res):
+                    raise AssertionError("per-device label bytes x 4 != "
+                                         "the replicated bytes")
+        emit("sharded_bytes", card=card, **bytes_line)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def profile_round(srv, rng, n, card, phase="profile", insert=True):
     """One more served round (20 000 queries, then 100 inserts unless
     ``insert`` is False) through ``srv`` (a server or an engine) under
@@ -1171,6 +1514,7 @@ def main():
     launches.update(dynamic_phase(dev, card))
     for name, c in il_packed_phase(dev, card).items():
         launches[name] += c
+    sharded_phase(card)
 
     csrc = "src/repro_torch/kernels/csrc"
     meta = {

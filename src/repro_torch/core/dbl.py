@@ -12,9 +12,11 @@ are kept in sync and feed the query path and the kernels.
 the words instead, with bitwise-equal planes.  ``families`` adds plug-in
 label families to the fused ("dl", "bl") core (``core.families``): the
 "il" interval family stores two (n_cap, 2*dim) int32 planes and the seed
-it re-draws them from.  The layout is replicated (one device).
-``from_numpy``/``to_numpy`` carry an index to and from the reference's
-field names.
+it re-draws them from.  ``layout`` says whose rows the planes hold: the
+whole index (``planes.REPLICATED``) or one rank's row block of a
+vertex-sharded index (``core.distributed``), on which the methods that
+need whole planes raise.  ``from_numpy``/``to_numpy`` carry an index to
+and from the reference's field names.
 
 **Fully-dynamic mode.**  ``delete_edges`` stamps tombstones and leaves the
 labels as a sound over-approximation; while dirty (``graph.del_epoch`` is
@@ -40,6 +42,7 @@ from . import bitset
 from . import families as F
 from . import graph as G
 from . import labels as L
+from . import planes as PL
 from . import propagate as P
 from . import query as Q
 from . import select as S
@@ -76,11 +79,7 @@ def _surface(sat: bool, check: str, max_iters: int) -> None:
                       LabelSaturationWarning, stacklevel=3)
 
 
-def not_ported(what: str, where: str) -> NotImplementedError:
-    """The error for a reference feature a later slice ports; ``where``
-    names its ROADMAP.md queue entry."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, {where})")
+not_ported = PL.not_ported
 
 
 _PLANES = ("dl_in", "dl_out", "bl_in", "bl_out")
@@ -127,10 +126,13 @@ class DBLIndex:
     il_in: torch.Tensor | None = None
     il_out: torch.Tensor | None = None
     il_seed: int | None = None
+    # whose rows the planes hold; n_cap, landmarks, the leaf masks and the
+    # graph are whole on every shard
+    layout: PL.PlaneLayout = PL.REPLICATED
 
     @property
     def n_cap(self) -> int:
-        return self.dl_in.shape[0]
+        return self.dl_in.shape[0] * self.layout.shards
 
     @property
     def k(self) -> int:
@@ -159,9 +161,44 @@ class DBLIndex:
         return None if self.il_in is None else self.il_in.shape[-1] // 2
 
     @property
+    def store(self) -> PL.PlaneStore:
+        """A PlaneStore view of the label state (planes, landmarks, leaf
+        masks) with the index's layout."""
+        return PL.PlaneStore(self.dl_in, self.dl_out, self.bl_in,
+                             self.bl_out, self.landmarks, self.bl_sources,
+                             self.bl_sinks, layout=self.layout)
+
+    def with_store(self, store: PL.PlaneStore, **kw) -> "DBLIndex":
+        """The index with its label fields (and layout) taken from
+        ``store``; the words are repacked."""
+        return replace(self, dl_in=store.dl_in, dl_out=store.dl_out,
+                       bl_in=store.bl_in, bl_out=store.bl_out,
+                       landmarks=store.landmarks,
+                       bl_sources=store.bl_sources,
+                       bl_sinks=store.bl_sinks, packed=store.pack(),
+                       layout=store.layout, **kw)
+
+    @property
+    def dirty_flag(self) -> torch.Tensor:
+        """() bool tensor on the index's device: ``is_dirty``."""
+        return torch.tensor(self.is_dirty, device=self.device)
+
+    @property
     def is_dirty(self) -> bool:
         """Labels carry deletions not yet rebuilt into them."""
         return self.graph.del_epoch > self.label_del_epoch
+
+    def _whole(self, what: str, counterpart: str | None = None) -> None:
+        """Refuse a method that needs whole planes on a shard: it names
+        the sharded counterpart, or the queue entry that ports one, and
+        never gathers."""
+        if not self.layout.sharded:
+            return
+        if counterpart is not None:
+            raise ValueError(f"{what} on a vertex-sharded index: use "
+                             f"repro_torch.core.distributed.{counterpart}")
+        raise not_ported(f"{what} on a vertex-sharded index",
+                         "queue 1, item 14b")
 
     # ---- construction (Alg 1) -------------------------------------------
     @staticmethod
@@ -211,6 +248,7 @@ class DBLIndex:
         """Batched reachability.  ``driver="engine"`` runs the QueryEngine
         (fused label phase + compacted BFS chunks); ``driver="host"`` runs
         the host-side reference loop."""
+        self._whole("query")
         if driver == "host":
             return Q.query(self.graph, self.packed, u, v, n_cap=self.n_cap,
                            bfs_chunk=bfs_chunk, max_iters=max_iters,
@@ -224,6 +262,7 @@ class DBLIndex:
         return eng.run(self, u, v, return_stats=return_stats)
 
     def label_verdicts(self, u, v) -> torch.Tensor:
+        self._whole("label_verdicts")
         dev = self.device
         return Q.label_verdicts(
             self.packed, torch.as_tensor(u, dtype=torch.int32, device=dev),
@@ -238,6 +277,7 @@ class DBLIndex:
         so it warns, raises, or ("defer") only sets the sticky
         ``saturated`` flag.  Plug-in families run their insert hooks over
         the extended graph."""
+        self._whole("insert_edges", "insert_vertex_sharded")
         _check_mode(check)
         dev = self.device
         ns = torch.as_tensor(np.asarray(new_src, np.int32), device=dev)
@@ -295,6 +335,7 @@ class DBLIndex:
         (slots renumber: a rebuild starts a new snapshot lineage).  The
         snapshot epoch goes up by one; ``saturated`` reflects this
         rebuild's own fixpoints, surfaced by ``check`` as in ``build``."""
+        self._whole("rebuild_info", "rebuild_vertex_sharded")
         if mode not in ("full", "delta", "auto"):
             raise ValueError(f"unknown rebuild mode {mode!r}")
         P.check_plane_repr(plane_repr)
@@ -477,6 +518,7 @@ class DBLIndex:
     def density(self) -> dict:
         """Mean label bits per vertex row, per plane (float32, as in the
         reference)."""
+        self._whole("density")
         return {name: float(bitset.unpack(getattr(self.packed, name),
                                           getattr(self, name).shape[1])
                             .sum(-1).to(torch.float32).mean())
@@ -528,6 +570,7 @@ class DBLIndex:
     def to_numpy(self) -> dict:
         """Inverse of ``from_numpy``; packed words come out as uint32, the
         reference's word type."""
+        self._whole("to_numpy")
         g = self.graph
         out = {"graph.src": g.src, "graph.dst": g.dst, "graph.n": g.n,
                "graph.del_at": g.del_at, "landmarks": self.landmarks,

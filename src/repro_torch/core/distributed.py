@@ -1,0 +1,363 @@
+"""The vertex-sharded DBL lifecycle over ``torch.distributed`` (SPMD).
+
+One process per shard runs the same host program.  Label planes (bool and
+packed, and the "il" rank planes) are row-partitioned: rank ``r`` of ``d``
+holds rows ``[r * n_loc, (r + 1) * n_loc)``.  The graph, the landmarks,
+the leaf masks, the epochs and the host halves of the shard plans are
+replicated: every rank computes them from the same inputs, so nothing is
+broadcast.  Fixpoints move only boundary frontier rows
+(``planes.halo_propagate``); insert seeding moves only the b inserted
+edges' rows (``planes.sharded_seed_scatter``).  Results are bitwise equal
+to the replicated ``DBLIndex``.
+
+    dist.init_process_group("gloo", init_method=..., rank=r, world_size=d)
+    mesh = vertex_mesh(device="cpu")              # "cuda:<rank>" by default
+    idx, plan = build_vertex_sharded(g, mesh, n_cap=n)
+    idx, plan, sat = insert_vertex_sharded(idx, plan, src, dst)
+    idx = idx.delete_edges(src, dst)
+    idx, plan, info = rebuild_vertex_sharded(idx, plan, mode="delta")
+
+Every rank must call these with the same arguments in the same order: a
+rank that skips a call leaves the others blocked in a collective.
+"""
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+from . import families as F
+from . import graph as G
+from . import labels as L
+from . import planes as PL
+from . import select as S
+from . import update as U
+from .dbl import DBLIndex, _check_mode, _surface
+from .graph import Graph
+from .interval import rank_plane
+
+
+@dataclass(frozen=True)
+class VertexMesh:
+    """A 1-axis vertex mesh: this process's place in a process group."""
+    group: object
+    rank: int
+    size: int
+    device: torch.device
+
+
+def vertex_mesh(shards: int | None = None, *, device=None,
+                group=None) -> VertexMesh:
+    """The vertex mesh over a process group the caller (or a launcher)
+    has initialized: ``group`` (default the whole world) with ``shards``
+    ranks (``None``: all of them).  The device defaults to
+    ``cuda:<global rank % device count>`` and raises without CUDA; pass
+    ``device="cpu"`` for the CPU (gloo)."""
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "vertex_mesh needs an initialized process group: call "
+            "torch.distributed.init_process_group(backend, init_method=..., "
+            "rank=..., world_size=...) in every rank first")
+    group = dist.group.WORLD if group is None else group
+    size = dist.get_world_size(group)
+    if shards is not None and shards != size:
+        raise ValueError(f"the group has {size} ranks, not {shards}: make "
+                         "a group of that size with dist.new_group and "
+                         "pass group=")
+    if device is None:
+        resolve_device(None)                  # raises without CUDA
+        device = f"cuda:{dist.get_rank() % torch.cuda.device_count()}"
+    return VertexMesh(group, dist.get_rank(group), size,
+                      resolve_device(device))
+
+
+def place_vertex_sharded(idx: DBLIndex, mesh: VertexMesh) -> DBLIndex:
+    """This rank's shard of a replicated index: its row block of every
+    plane, everything else whole, all on ``mesh.device``.
+    ``DBLIndex.from_numpy`` followed by this turns label state held as
+    numpy arrays (a reference index's, say) into a shard."""
+    if idx.layout.sharded:
+        raise ValueError("the index is vertex-sharded already")
+    layout = PL.vertex_layout(mesh)
+    n_loc = PL._check_rows(idx.n_cap, layout)
+    rows = slice(layout.rank * n_loc, (layout.rank + 1) * n_loc)
+    dev = mesh.device
+
+    def part(t):
+        return None if t is None else t[rows].contiguous().to(dev)
+
+    store = PL.PlaneStore(part(idx.dl_in), part(idx.dl_out),
+                          part(idx.bl_in), part(idx.bl_out),
+                          idx.landmarks.to(dev), idx.bl_sources.to(dev),
+                          idx.bl_sinks.to(dev), layout=layout)
+    return idx.with_store(store, graph=idx.graph.to(dev),
+                          il_in=part(idx.il_in), il_out=part(idx.il_out))
+
+
+def _note(rounds, *iters) -> None:
+    if rounds is not None:
+        rounds.extend(int(i) for i in iters)
+
+
+def _il_build_sharded(plan: PL.ShardPlan, n_cap: int, dim: int, seed: int,
+                      live: torch.Tensor, max_iters: int):
+    """Sharded twin of ``interval.build_il``: this rank's rows of the rank
+    seed plane (drawn whole on the host, a function of (seed, n_cap,
+    dim)), both directions through the MIN halo fixpoint from the all-ones
+    frontier.  Returns (il_in, il_out, [iters_in, iters_out])."""
+    mesh = plan.mesh
+    n_loc = n_cap // mesh.size
+    base = rank_plane(n_cap, dim, seed, "cpu")[
+        mesh.rank * n_loc:(mesh.rank + 1) * n_loc].to(mesh.device)
+    fr = torch.ones(n_loc, dtype=torch.bool, device=mesh.device)
+    il_in, it0 = PL.halo_propagate(plan, base, fr, live, monoid="min",
+                                   max_iters=max_iters)
+    il_out, it1 = PL.halo_propagate(plan, base, fr, live, reverse=True,
+                                    monoid="min", max_iters=max_iters)
+    return il_in, il_out, [it0, it1]
+
+
+def build_vertex_sharded(g: Graph, mesh: VertexMesh, *, n_cap: int,
+                         k: int = 64, k_prime: int = 64,
+                         selection: str = "product", leaf_r: int = 0,
+                         max_iters: int = 256, check: str = "warn",
+                         plane_repr: str = "bool",
+                         families=F.DEFAULT_FAMILIES,
+                         il_dim: int = F.DEFAULT_IL_DIM, il_seed: int = 0,
+                         halo_mode: str = "dense", hub_count: int = 0,
+                         telemetry=None, halo_caps=None, rounds=None
+                         ) -> tuple[DBLIndex, PL.ShardPlan]:
+    """Alg 1 with vertex-sharded planes: one fused (k + k')-lane halo
+    fixpoint per direction over this rank's seed rows, bitwise equal to
+    ``DBLIndex.build``.  Returns (this rank's index, plan); the plan
+    carries the edge partition and halo routing later inserts and
+    rebuilds reuse.  ``families`` adds the "il" rank planes, built through
+    the MIN halo fixpoint.  ``rounds``, a list, gets each fixpoint's
+    ``iters`` appended (fwd, bwd, then il in, il out).  The sparse halo
+    (``halo_mode="sparse"``, ``hub_count``, ``telemetry``, ``halo_caps``)
+    is not ported."""
+    _check_mode(check)
+    PL.check_dense_halo(halo_mode, telemetry, halo_caps, hub_count)
+    plugin_fams = F.plugins(families)
+    layout = PL.vertex_layout(mesh)
+    PL._check_rows(n_cap, layout)
+    g = g.to(mesh.device)
+    landmarks = S.select_landmarks(g, n_cap=n_cap, k=k, method=selection)
+    sources, sinks = S.leaf_masks(g, n_cap=n_cap, leaf_r=leaf_r)
+    seeds = PL.PlaneStore.seeds(landmarks, sources, sinks, n_cap=n_cap,
+                                k=k, k_prime=k_prime, layout=layout)
+    fr_fwd, fr_bwd = seeds.seed_frontiers()
+    plan = PL.shard_plan(g.src, g.dst, g.m, n_cap, mesh)
+    live = G.edge_mask(g)
+    x_fwd, it0 = PL.halo_propagate(plan, seeds.fused(), fr_fwd, live,
+                                   max_iters=max_iters,
+                                   plane_repr=plane_repr)
+    x_bwd, it1 = PL.halo_propagate(plan, seeds.fused(reverse=True), fr_bwd,
+                                   live, reverse=True, max_iters=max_iters,
+                                   plane_repr=plane_repr)
+    iters = [it0, it1]
+    il_kw = {}
+    for _ in plugin_fams:
+        p_in, p_out, it_f = _il_build_sharded(plan, n_cap, il_dim, il_seed,
+                                              live, max_iters)
+        il_kw = dict(il_in=p_in, il_out=p_out, il_seed=int(il_seed))
+        iters += it_f
+    _note(rounds, *iters)
+    sat = U.saturated(iters, max_iters)
+    _surface(sat, check, max_iters)
+    store = seeds.with_fused(x_fwd, x_bwd)
+    idx = DBLIndex(g, landmarks, store.dl_in, store.dl_out, store.bl_in,
+                   store.bl_out, store.pack(), sources, sinks, epoch=0,
+                   label_del_epoch=g.del_epoch, saturated=sat,
+                   layout=layout, **il_kw)
+    return idx, plan
+
+
+def insert_vertex_sharded(idx: DBLIndex, plan: PL.ShardPlan, new_src,
+                          new_dst, *, max_iters: int = 256,
+                          check: str = "warn", plane_repr: str = "bool",
+                          extend: bool = True, halo_mode: str = "dense",
+                          telemetry=None, halo_caps=None, rounds=None
+                          ) -> tuple[DBLIndex, PL.ShardPlan, bool]:
+    """Batched Alg-3 insert on a shard, bitwise equal to
+    ``DBLIndex.insert_edges``.  The inserted edges' seed rows cross shards
+    once; the fixpoints run on local rows with the halo exchange.
+    Returns (index', plan', saturated_now).
+
+    The plan is extended (``planes.extend_plan``, O(m + Δm log Δm) host
+    work, no re-sort); ``extend=False`` builds it from scratch, and a plan
+    that does not cover exactly the pre-insert edge prefix is rebuilt from
+    scratch with a warning rather than routing wrong.  ``rounds`` as in
+    :func:`build_vertex_sharded`."""
+    _check_mode(check)
+    PL.check_dense_halo(halo_mode, telemetry, halo_caps)
+    mesh = plan.mesh
+    dev = idx.device
+    ns_np = np.asarray(new_src, np.int32).ravel()
+    nd_np = np.asarray(new_dst, np.int32).ravel()
+    ns = torch.from_numpy(ns_np).to(dev)
+    nd = torch.from_numpy(nd_np).to(dev)
+    m0 = idx.graph.m
+    g2 = G.insert_edges(idx.graph, ns, nd)
+    if extend and plan.m == m0 and plan.n_cap == idx.n_cap:
+        plan2 = PL.extend_plan(plan, ns_np, nd_np)
+    else:
+        if extend:
+            warnings.warn(
+                f"stale shard plan (covers m={plan.m}, n_cap={plan.n_cap}; "
+                f"graph has m={m0}, n_cap={idx.n_cap}): rebuilding the "
+                "routing tables from scratch", stacklevel=2)
+        plan2 = PL.shard_plan(g2.src, g2.dst, g2.m, idx.n_cap, mesh,
+                              edge_granule=plan.edge_granule,
+                              halo_granule=plan.halo_granule)
+    live = G.edge_mask(g2)
+    store = idx.store
+    seeded_f, fr_f = PL.sharded_seed_scatter(store.fused(), ns, nd,
+                                             mesh=mesh)
+    x_fwd, it0 = PL.halo_propagate(plan2, seeded_f, fr_f, live,
+                                   max_iters=max_iters,
+                                   plane_repr=plane_repr)
+    seeded_b, fr_b = PL.sharded_seed_scatter(store.fused(reverse=True),
+                                             nd, ns, mesh=mesh)
+    x_bwd, it1 = PL.halo_propagate(plan2, seeded_b, fr_b, live,
+                                   reverse=True, max_iters=max_iters,
+                                   plane_repr=plane_repr)
+    iters = [it0, it1]
+    il_kw = {}
+    if idx.il_in is not None:
+        # the MIN twin of the seeding, with the replicated
+        # ``insert_update_il``'s role swap: edge (u, v) hands u's ancestor
+        # mins to v and v's reach mins to u
+        s_in, fr_i = PL.sharded_seed_scatter_min(idx.il_in, ns, nd,
+                                                 mesh=mesh)
+        il_in2, it2 = PL.halo_propagate(plan2, s_in, fr_i, live,
+                                        monoid="min", max_iters=max_iters)
+        s_out, fr_o = PL.sharded_seed_scatter_min(idx.il_out, nd, ns,
+                                                  mesh=mesh)
+        il_out2, it3 = PL.halo_propagate(plan2, s_out, fr_o, live,
+                                         reverse=True, monoid="min",
+                                         max_iters=max_iters)
+        il_kw = dict(il_in=il_in2, il_out=il_out2)
+        iters += [it2, it3]
+    _note(rounds, *iters)
+    sat_now = U.saturated(iters, max_iters)
+    _surface(sat_now, check, max_iters)
+    idx2 = idx.with_store(store.with_fused(x_fwd, x_bwd), graph=g2,
+                          epoch=idx.epoch + 1,
+                          saturated=idx.saturated or sat_now, **il_kw)
+    return idx2, plan2, sat_now
+
+
+def rebuild_vertex_sharded(idx: DBLIndex, plan: PL.ShardPlan | None, *,
+                           mesh: VertexMesh | None = None,
+                           mode: str = "full", selection: str = "product",
+                           leaf_r: int = 0, max_iters: int = 256,
+                           compact: bool = True, check: str = "warn",
+                           delta_threshold: float = 0.99,
+                           plane_repr: str = "bool",
+                           halo_mode: str = "dense", telemetry=None,
+                           halo_caps=None, rounds=None
+                           ) -> tuple[DBLIndex, PL.ShardPlan, dict]:
+    """Sharded twin of ``DBLIndex.rebuild_info``: the full Alg-1 rebuild
+    or the delta repair on a shard, bitwise equal to the replicated one,
+    with the same ``info`` dict.
+
+    The delta plan (invalidation closures, seed churn, estimate) is the
+    replicated ``DBLIndex._delta_plan`` on the replicated graph; the
+    partial reset is the store's row/column seed reset of this rank's
+    rows; the repair fixpoint relaxes the whole live edge set (relaxing
+    edges into clean rows changes nothing).  A plan that misses inserts
+    catches up by ``extend_plan(dedupe=False)`` over the window.  Returns
+    (index', plan', info); ``rounds`` as in :func:`build_vertex_sharded`."""
+    mesh = mesh or (plan.mesh if plan is not None else None)
+    if mesh is None:
+        raise ValueError("rebuild_vertex_sharded needs a plan or a mesh")
+    if mode not in ("full", "delta", "auto"):
+        raise ValueError(f"unknown rebuild mode {mode!r}")
+    _check_mode(check)
+    PL.check_dense_halo(halo_mode, telemetry, halo_caps)
+    n_cap, k, kp = idx.n_cap, idx.k, idx.k_prime
+    gran = {} if plan is None else dict(edge_granule=plan.edge_granule,
+                                        halo_granule=plan.halo_granule)
+    build_kw = dict(n_cap=n_cap, k=k, k_prime=kp, selection=selection,
+                    leaf_r=leaf_r, max_iters=max_iters, check=check,
+                    plane_repr=plane_repr, rounds=rounds)
+    if idx.il_in is not None:
+        build_kw.update(families=idx.families, il_dim=idx.il_dim,
+                        il_seed=idx.il_seed)
+
+    def full(reason):
+        g2 = G.compact(idx.graph) if compact else idx.graph
+        idx2, plan2 = build_vertex_sharded(g2, mesh, **build_kw)
+        return replace(idx2, epoch=idx.epoch + 1), plan2, \
+            {"mode": "full", "reason": reason}
+
+    if mode == "full":
+        return full("forced")
+    if idx.saturated:
+        return full("saturated")
+    dplan = idx._delta_plan(selection=selection, leaf_r=leaf_r)
+    est = dplan["estimate"]
+    if mode == "auto" and est["frac"] > delta_threshold:
+        i2, p2, info = full("estimate")
+        return i2, p2, {**info, "estimate": est}
+    g = idx.graph
+    m_now = g.m
+    if plan is None or plan.n_cap != n_cap or plan.mesh != mesh \
+            or plan.m > m_now:
+        plan = PL.shard_plan(g.src, g.dst, m_now, n_cap, mesh, **gran)
+    elif plan.m < m_now:
+        # O(Δm) catch-up over the slots [plan.m, m_now) inserted since
+        # the plan was built; the window may span several batches with
+        # deletes between them, so every raw slot is kept (dedupe=False)
+        src, dst = g.src.cpu().numpy(), g.dst.cpu().numpy()
+        plan = PL.extend_plan(plan, src[plan.m:m_now], dst[plan.m:m_now],
+                              dedupe=False)
+    (x_fwd, x_bwd, fresh_fwd, fresh_bwd, seed_fwd, seed_bwd,
+     fr_fwd, fr_bwd) = L.delta_plane_state(
+        g, idx.dl_in, idx.dl_out, idx.bl_in, idx.bl_out,
+        idx.landmarks, dplan["landmarks"], idx.bl_sources, idx.bl_sinks,
+        dplan["sources"], dplan["sinks"],
+        dplan["dirty_fwd"], dplan["dirty_bwd"],
+        n_cap=n_cap, k=k, k_prime=kp, layout=idx.layout)
+    live = G.edge_mask(g)
+    iters = []
+    out = []
+    for rev, x, seed, fresh, fr in ((False, x_fwd, seed_fwd, fresh_fwd,
+                                     fr_fwd),
+                                    (True, x_bwd, seed_bwd, fresh_bwd,
+                                     fr_bwd)):
+        fr = fr | (seed.bool() & fresh[None, :]).any(1)
+        x, it = PL.halo_propagate(plan, x, fr, live, reverse=rev,
+                                  max_iters=max_iters, plane_repr=plane_repr)
+        iters.append(it)
+        out.append(x)
+    g2 = G.compact(g) if compact else g
+    plan2 = PL.shard_plan(g2.src, g2.dst, g2.m, n_cap, mesh, **gran) \
+        if compact else plan
+    # the "il" repair re-draws both planes from the stored seed over the
+    # live edges, as the replicated delta path does
+    il_kw = {}
+    if idx.il_in is not None:
+        p_in, p_out, it_f = _il_build_sharded(
+            plan2, n_cap, idx.il_dim, idx.il_seed, G.edge_mask(g2),
+            max_iters)
+        il_kw = dict(il_in=p_in, il_out=p_out)
+        iters += it_f
+    _note(rounds, *iters)
+    sat = U.saturated(iters, max_iters)
+    _surface(sat, check, max_iters)
+    store = idx.store.with_fused(out[0], out[1],
+                                 landmarks=dplan["landmarks"],
+                                 bl_sources=dplan["sources"],
+                                 bl_sinks=dplan["sinks"])
+    idx2 = idx.with_store(store, graph=g2, epoch=idx.epoch + 1,
+                          label_del_epoch=g2.del_epoch, saturated=sat,
+                          **il_kw)
+    reason = "forced" if mode == "delta" else "estimate"
+    return idx2, plan2, {"mode": "delta", "reason": reason,
+                         "estimate": est}

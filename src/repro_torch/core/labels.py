@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from .graph import Graph, edge_mask
-from .planes import bl_seed_plane, dl_seed_plane
+from .planes import REPLICATED, PlaneStore, bl_seed_plane, dl_seed_plane
 from .propagate import propagate, push_boundary, segment_or
 from .select import leaf_hash
 
@@ -86,13 +86,17 @@ def delta_plane_state(g: Graph, dl_in, dl_out, bl_in, bl_out,
                       old_landmarks, new_landmarks,
                       old_sources, old_sinks, sources, sinks,
                       dirty_fwd, dirty_bwd, *, n_cap: int, k: int,
-                      k_prime: int):
+                      k_prime: int, layout=REPLICATED):
     """The partially reset fused planes a delta fixpoint restarts from,
-    one (n_cap, k + k') plane per direction (DL lanes first, BL buckets
+    one (rows, k + k') plane per direction (DL lanes first, BL buckets
     after).  An entry is reset to its Alg-1 seed iff its row is dirty (in
     the deleted edges' invalidation closure for that direction) or its
     column is fresh (landmark or leaf-bucket churn); every other entry
     keeps its bits, which old paths avoiding every tombstone certify.
+
+    The planes hold the rows of ``layout`` (one rank's block of a
+    vertex-sharded index, or all of them); the masks and the (n_cap,)
+    dirty vectors are whole, and the outputs cover the planes' rows.
 
     Returns (x_fwd, x_bwd, fresh_fwd, fresh_bwd, seed_fwd, seed_bwd,
     frontier_fwd, frontier_bwd)."""
@@ -103,22 +107,17 @@ def delta_plane_state(g: Graph, dl_in, dl_out, bl_in, bl_out,
                                                   k_prime=k_prime)])
     fresh_bwd = torch.cat([dl_fresh, bucket_churn(old_sinks, sinks,
                                                   k_prime=k_prime)])
-    dl_seed = dl_seed_plane(new_landmarks, n_cap=n_cap, k=k)
-    seed_fwd = torch.cat([dl_seed, bl_seed_plane(sources, n_cap=n_cap,
-                                                 k_prime=k_prime)], 1)
-    seed_bwd = torch.cat([dl_seed, bl_seed_plane(sinks, n_cap=n_cap,
-                                                 k_prime=k_prime)], 1)
-
-    def reset(old, seed, dirty, fresh):
-        return torch.where(dirty[:, None] | fresh[None, :], seed, old)
-
-    x_fwd = reset(torch.cat([dl_in_a, bl_in], 1), seed_fwd, dirty_fwd,
-                  fresh_fwd)
-    x_bwd = reset(torch.cat([dl_out_a, bl_out], 1), seed_bwd, dirty_bwd,
-                  fresh_bwd)
+    old = PlaneStore(dl_in_a, dl_out_a, bl_in, bl_out, new_landmarks,
+                     old_sources, old_sinks, layout=layout)
+    seeds = PlaneStore.seeds(new_landmarks, sources, sinks, n_cap=n_cap,
+                             k=k, k_prime=k_prime, layout=layout)
+    rows = old.rows
+    x_fwd, x_bwd = old.reset_invalid(seeds, dirty_fwd[rows],
+                                     dirty_bwd[rows], fresh_fwd, fresh_bwd)
     frontier_fwd = dirty_fwd | push_boundary(g.src, g.dst, live, dirty_fwd,
                                              n_cap=n_cap)
     frontier_bwd = dirty_bwd | push_boundary(g.src, g.dst, live, dirty_bwd,
                                              n_cap=n_cap, reverse=True)
-    return (x_fwd, x_bwd, fresh_fwd, fresh_bwd, seed_fwd, seed_bwd,
-            frontier_fwd, frontier_bwd)
+    return (x_fwd, x_bwd, fresh_fwd, fresh_bwd, seeds.fused(),
+            seeds.fused(reverse=True), frontier_fwd[rows],
+            frontier_bwd[rows])

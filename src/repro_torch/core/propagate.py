@@ -32,11 +32,25 @@ from . import bitset
 
 PLANE_REPRS = ("bool", "packed")
 
+#: How the vertex-sharded fixpoint exchanges boundary rows: ``"dense"``
+#: ships every halo slot every round (``planes.halo_propagate``);
+#: ``"sparse"`` is the compacted changed-row exchange, not ported yet.
+HALO_MODES = ("dense", "sparse")
+
+#: the MIN monoid's identity: an inactive int32 contribution
+INT_MAX = 2 ** 31 - 1
+
 
 def check_plane_repr(plane_repr: str) -> None:
     if plane_repr not in PLANE_REPRS:
         raise ValueError(
             f"plane_repr must be 'bool' or 'packed', got {plane_repr!r}")
+
+
+def check_halo_mode(halo_mode: str) -> None:
+    if halo_mode not in HALO_MODES:
+        raise ValueError(
+            f"halo_mode must be one of {HALO_MODES}, got {halo_mode!r}")
 
 
 def segment_or(base: torch.Tensor, rows: torch.Tensor,

@@ -190,14 +190,14 @@ class QueryEngine:
         if bfs_chunk <= 0 or q_block <= 0:
             raise ValueError("bfs_chunk and q_block must be positive")
         if mesh is not None:
-            raise not_ported("the query-axis mesh", "queue 1, item 14")
+            raise not_ported("the query-axis mesh", "queue 1, item 14d")
         if streaming and vertex_mesh is not None:
             raise ValueError(
                 "the vertex-sharded layout reconstructs verdict row blocks "
                 "with collectives and never dispatches the query kernels; "
                 "streaming=True would be dead there")
         if vertex_mesh is not None:
-            raise not_ported("the vertex-sharded layout", "queue 1, item 14")
+            raise not_ported("the vertex-sharded layout", "queue 1, item 14b")
         check_plane_repr(plane_repr)
         if frontier_dtype not in Q.FRONTIER_DTYPES:
             raise ValueError(f"unknown frontier dtype {frontier_dtype!r}; "
@@ -260,6 +260,9 @@ class QueryEngine:
         """(Re-)bind a serving index: starts a new snapshot lineage.
         In-flight submits of the outgoing lineage resolve first.  The
         engine follows the index's device."""
+        if idx is not None and idx.layout.sharded:
+            raise not_ported("serving a vertex-sharded index",
+                             "queue 1, item 14b")
         if self._index is not None:
             self._drain_inflight()
         self._lineage += 1
@@ -282,6 +285,9 @@ class QueryEngine:
         self._inflight = []
 
     def _check_device(self, index: DBLIndex):
+        if index.layout.sharded:
+            raise not_ported("serving a vertex-sharded index",
+                             "queue 1, item 14b")
         if index.device != self.device:
             raise ValueError(f"index lives on {index.device}, engine on "
                              f"{self.device}")
