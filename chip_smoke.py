@@ -72,8 +72,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    (NCCL refuses two ranks on one device), spawned from here with a
    ``FileStore`` and a timeout, each holding its row block against a
    replicated index it builds itself; if gloo refuses CUDA tensors, the
-   refusal is printed instead.  Lines ``sharded_world1``,
-   ``sharded_4rank`` (or ``sharded_4rank_refused``) and
+   refusal is printed instead.  Each lifecycle is followed by a serving
+   stream on the shard: a ``ReachabilityServer`` over
+   ``QueryEngine(vertex_mesh=mesh)`` beside a replicated server on the
+   same card, two rounds of 20 000 queries and 100 inserts (one
+   pipelined), a delete of 500 single-slot pairs, a dirty round, the
+   engine's delta rebuild and a clean round; every answer, the engine
+   stats and the rebuild info equal the replicated server's, and on rank
+   0 the residue lanes and 64 random lanes a round equal a host BFS.  The
+   serving path's collectives are counted (an all-gather or broadcast
+   fails the run), and the world of one profiles one more round on the
+   bool shard.  Lines ``sharded_world1``, ``sharded_serve_world1``,
+   ``sharded_serve_profile``, ``sharded_4rank`` and
+   ``sharded_serve_4rank`` (or ``sharded_4rank_refused``) and
    ``sharded_bytes``.  No kernel is on this path.
 8. the ``kernels`` summary line, then the ``ok`` line last.
 """
@@ -130,6 +141,8 @@ IL_FAM = dict(families=("dl", "bl", "il"), il_dim=4, il_seed=0)
 SHARDED_CONFIGS = (("bool", {}), ("packed", dict(plane_repr="packed")),
                    ("il", IL_FAM))
 SHARDED_INSERTS = 2
+#: the sharded serving stream's rounds that insert
+SHARDED_SERVE_ROUNDS = 2
 SHARDED_RANKS = 4
 SHARDED_TIMEOUT_S = 600
 
@@ -1221,12 +1234,240 @@ def _hold_shard(step, mesh, shard, rep, rounds, want_rounds, info=None,
     return [int(r) for r in rounds]
 
 
-def sharded_lifecycle(mesh, extra):
+class _Collectives:
+    """Counts the ``torch.distributed`` calls of the sharded serving path
+    (``all_reduce`` with its bytes, ``all_to_all_single``) and the
+    residue chunks (``planes.sharded_pruned_bfs`` calls) while installed;
+    an all-gather or a broadcast raises."""
+
+    COUNTED = ("all_reduce", "all_to_all_single")
+    FORBIDDEN = ("all_gather", "all_gather_into_tensor", "broadcast")
+
+    def __init__(self):
+        self.n = dict.fromkeys(self.COUNTED + ("bfs_chunks",
+                                               "all_reduce_bytes"), 0)
+        self.saved = {}
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from repro_torch.core import planes as PL
+
+        def counted(name, fn):
+            def call(*a, **kw):
+                self.n[name] += 1
+                if name == "all_reduce":
+                    self.n["all_reduce_bytes"] += \
+                        a[0].numel() * a[0].element_size()
+                return fn(*a, **kw)
+            return call
+
+        def forbidden(name):
+            def call(*a, **kw):
+                raise AssertionError(f"{name} on the sharded serving path")
+            return call
+
+        for name in self.COUNTED + self.FORBIDDEN:
+            self.saved[(dist, name)] = getattr(dist, name)
+            setattr(dist, name, counted(name, getattr(dist, name))
+                    if name in self.COUNTED else forbidden(name))
+        self.saved[(PL, "sharded_pruned_bfs")] = PL.sharded_pruned_bfs
+        PL.sharded_pruned_bfs = counted("bfs_chunks", PL.sharded_pruned_bfs)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
+
+    def take(self) -> dict:
+        """The counts since the last ``take``."""
+        out, self.n = self.n, dict.fromkeys(self.n, 0)
+        return out
+
+
+def _residue_lanes(snap, u, v):
+    """The lanes the snapshot's labels leave unknown (plain torch ops):
+    all four rules on clean labels, self-queries and BL negatives only on
+    dirty ones."""
+    import torch
+    from repro_torch.core import query as Q
+    uu = torch.from_numpy(u).to(snap.device)
+    vv = torch.from_numpy(v).to(snap.device)
+    if snap.is_dirty:
+        verd = Q.cut_verdicts(snap.packed, uu, vv, 1, 0, False)
+    else:
+        verd = Q.label_verdicts(snap.packed, uu, vv, il=snap.il)
+    return np.flatnonzero(verd.cpu().numpy() == -1)
+
+
+def sharded_serve(mesh, extra, profile_card=None):
+    """Serving on this rank's shard: a ``ReachabilityServer`` over
+    ``QueryEngine(vertex_mesh=mesh)`` beside a replicated server on the
+    same card, both on the LJ preset at full width.  Two rounds of QUERIES
+    queries and INSERTS inserts (the second through submit -> insert ->
+    flush), a delete of DELETES single-slot pairs, a dirty round, the
+    engine's delta rebuild and a clean round.  Every answer equals the
+    replicated server's; on rank 0 the residue lanes and RANDOM_CHECKS
+    random lanes a round equal a host BFS over the round's live edges.
+    ``profile_card`` (the world of one) adds a profiled round on the
+    sharded server.  Returns the rounds' times and counts."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.graphs.generators import table2_graph
+    from repro_torch.serve.engine import QueryEngine
+    from repro_torch.serve.reach_server import ReachabilityServer
+
+    dev = mesh.device
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    m = int(src.size)
+    rng = np.random.default_rng(7)
+    kw = dict(n_cap=n, k=64, k_prime=64, max_iters=64, check="raise",
+              device=dev, **extra)
+    eng_kw = dict(bfs_chunk=BFS_CHUNK, max_iters=64,
+                  plane_repr=extra.get("plane_repr", "bool"))
+    m_cap = m + (SHARDED_SERVE_ROUNDS + 1) * INSERTS
+
+    def server(**vertex):
+        # each server its own graph and index: the replicated engine
+        # rewrites its planes in place on insert (donation)
+        g = make_graph(src, dst, n, m_cap=m_cap, device=dev)
+        idx = DBLIndex.build(g, **kw)
+        return ReachabilityServer(
+            None, engine=QueryEngine(idx, **vertex, **eng_kw),
+            rebuild_dead_ratio=None)
+
+    srvs = {"sharded": server(vertex_mesh=mesh), "replicated": server()}
+    sh = srvs["sharded"].index
+    row_words = sum(w.shape[1] for w in sh.packed) * 2
+    il_words = 0 if sh.il is None else 4 * sh.il_in.shape[1]
+    out = {"rounds": [], "row_all_reduce_bytes": LABEL_Q * row_words * 4,
+           "il_all_reduce_bytes": LABEL_Q * il_words * 4}
+    counts = _Collectives()
+
+    def served_round(r, mode):
+        u = rng.integers(0, n, QUERIES).astype(np.int32)
+        v = rng.integers(0, n, QUERIES).astype(np.int32)
+        ns = rng.integers(0, n, INSERTS).astype(np.int32)
+        nd = rng.integers(0, n, INSERTS).astype(np.int32)
+        snap = srvs["replicated"].index
+        es, ed = live_edges(snap.graph)
+        lanes = _residue_lanes(snap, u, v)
+        line = {"round": r, "mode": mode, "dirty": snap.is_dirty}
+        answers = {}
+        for name, srv in srvs.items():
+            before = srv.engine.stats.as_dict()["prune_hits"]["bfs"]
+            counts.take()
+            q_ms = i_ms = 0.0
+            if mode == "submit-insert-flush":
+                _, q_ms = _sync_time(lambda: srv.submit(u, v))
+                label = counts.take()
+                if name == "sharded":
+                    # the label phase's row blocks, read off the counter
+                    line["label_all_reduce_bytes"] = \
+                        label["all_reduce_bytes"]
+                    want = out["row_all_reduce_bytes"] \
+                        + out["il_all_reduce_bytes"]
+                    if label["all_reduce_bytes"] != want:
+                        raise AssertionError(
+                            f"sharded label phase all_reduce moved "
+                            f"{label['all_reduce_bytes']} B, not {want}")
+                _, i_ms = _sync_time(lambda: srv.insert(ns, nd))
+                counts.take()
+                ans, f_ms = _sync_time(
+                    lambda: srv.flush(consistency="as-of-submit")[0])
+                q_ms += f_ms
+                query = {k: c + label[k]
+                         for k, c in counts.take().items()}
+            else:
+                ans, q_ms = _sync_time(lambda: srv.query(u, v))
+                query = counts.take()
+                if mode == "query-then-insert":
+                    _, i_ms = _sync_time(lambda: srv.insert(ns, nd))
+            residue = srv.engine.stats.as_dict()["prune_hits"]["bfs"] \
+                - before
+            answers[name] = ans
+            line[name] = {"query_ms": q_ms, "insert_ms": i_ms,
+                          "residue_lanes": residue,
+                          "rho": 1 - residue / QUERIES}
+            if name == "sharded":
+                chunks, a2a = query["bfs_chunks"], query["all_to_all_single"]
+                # all_reduce calls that are not a BFS round's: the row
+                # blocks (one, two with il) of the label phase and of each
+                # chunk's re-check, and each chunk's first frontier count
+                fixed = (1 + chunks) * (2 if il_words else 1) + chunks
+                line[name].update(
+                    bfs_chunks=chunks, bfs_rounds=a2a,
+                    bfs_rounds_per_chunk=a2a / chunks if chunks else 0,
+                    collectives=query,
+                    all_reduce_per_bfs_round=(query["all_reduce"] - fixed)
+                    / a2a if a2a else 0)
+            if residue != lanes.size:
+                raise AssertionError(
+                    f"sharded serve round {r} ({name}): {lanes.size} "
+                    f"unknown lanes by the labels, the engine ran "
+                    f"{residue}")
+        if not np.array_equal(answers["sharded"], answers["replicated"]):
+            raise AssertionError(f"sharded serve round {r}: answers differ "
+                                 "from the replicated server's")
+        # every rank draws the random lanes, so the ranks' streams stay
+        # the same; rank 0 checks them
+        lanes = np.union1d(lanes, rng.choice(QUERIES, RANDOM_CHECKS,
+                                             replace=False))
+        bad = torch.zeros(1, dtype=torch.int64, device=dev)
+        if mesh.rank == 0:
+            reach = host_reach(n, es, ed, np.unique(u[lanes]))
+            want = np.array([reach[int(u[i])][v[i]] for i in lanes])
+            bad += int((answers["sharded"][lanes] != want).sum())
+            line["host_checked_lanes"] = int(lanes.size)
+        # every rank waits here for rank 0's check (and fails with it), so
+        # no rank's next timed call includes that wait
+        dist.all_reduce(bad, group=mesh.group)
+        counts.take()
+        if int(bad):
+            raise AssertionError(f"sharded serve round {r}: {int(bad)} of "
+                                 f"{lanes.size} checked answers differ "
+                                 "from the host BFS")
+        out["rounds"].append(line)
+
+    with counts:
+        served_round(0, "query-then-insert")
+        served_round(1, "submit-insert-flush")
+        ls, ld = live_edges(srvs["replicated"].index.graph)
+        pairs, mult = np.unique(ls.astype(np.int64) * n + ld,
+                                return_counts=True)
+        pick = rng.choice(pairs[mult == 1], DELETES, replace=False)
+        ds, dd = (pick // n).astype(np.int32), (pick % n).astype(np.int32)
+        out["delete_ms"] = {name: _sync_time(lambda: srv.delete(ds, dd))[1]
+                            for name, srv in srvs.items()}
+        out["delete_collectives"] = counts.take()
+        served_round(2, "dirty")
+        out["rebuild_ms"] = {
+            name: _sync_time(lambda: srv.rebuild(mode="delta"))[1]
+            for name, srv in srvs.items()}
+        out["rebuild_collectives"] = counts.take()
+        infos = [srv.engine.last_rebuild_info for srv in srvs.values()]
+        if infos[0] != infos[1]:
+            raise AssertionError(f"sharded serve rebuild info {infos}")
+        out["rebuild_info"] = infos[0]
+        served_round(3, "clean")
+    stats = [srv.engine.stats.as_dict() for srv in srvs.values()]
+    if stats[0] != stats[1]:
+        raise AssertionError(f"sharded serve engine stats differ: {stats}")
+    out["engine_stats"] = stats[0]
+    if profile_card is not None:
+        profile_round(srvs["sharded"], rng, n, profile_card,
+                      phase="sharded_serve_profile")
+    return out
+
+
+def sharded_lifecycle(mesh, extra, profile_card=None):
     """The LJ lifecycle on this rank's shard beside the replicated port on
     the same card: build, SHARDED_INSERTS inserts, a delete of DELETES
     single-slot pairs, the delta and the full rebuild.  Every step is held
-    bit for bit (``_hold_shard``).  Returns the steps' times (ms, sharded
-    and replicated), rounds and the delta rebuild's info."""
+    bit for bit (``_hold_shard``).  Then the serving stream
+    (:func:`sharded_serve`).  Returns the steps' times (ms, sharded and
+    replicated), rounds, the delta rebuild's info and the stream's
+    results under "serve"."""
     import torch
     from repro_torch.core import DBLIndex, make_graph
     from repro_torch.core import distributed as D
@@ -1302,6 +1543,7 @@ def sharded_lifecycle(mesh, extra):
             _replicated_rounds(kind, r2, rep), info, want)
         if mode == "delta":
             out["delta_info"] = info
+    out["serve"] = sharded_serve(mesh, extra, profile_card)
     return out
 
 
@@ -1371,14 +1613,18 @@ def sharded_phase(card):
             # NCCL sets up its communicator at the first collective
             one = torch.ones(1, device=mesh.device)
             _, first_ms = _sync_time(lambda: dist.all_reduce(one))
-            world1 = {name: sharded_lifecycle(mesh, extra)
-                      for name, extra in SHARDED_CONFIGS}
+            world1 = {name: sharded_lifecycle(
+                mesh, extra, card if name == "bool" else None)
+                for name, extra in SHARDED_CONFIGS}
         finally:
             dist.destroy_process_group()
         for name, res in world1.items():
+            serve = res.pop("serve")
             emit("sharded_world1", config=name, backend="nccl",
                  device=str(mesh.device), bitwise=True,
                  first_collective_ms=first_ms, card=card, **res)
+            emit("sharded_serve_world1", config=name, backend="nccl",
+                 device=str(mesh.device), bitwise=True, card=card, **serve)
 
         t = time.perf_counter()
         ctx = tmp.spawn(_sharded_rank, nprocs=SHARDED_RANKS, join=False,
@@ -1407,6 +1653,18 @@ def sharded_phase(card):
         else:
             for name, extra in SHARDED_CONFIGS:
                 res = [r[name] for r in ranks]
+                serve = [r.pop("serve") for r in res]
+                emit("sharded_serve_4rank", config=name, backend="gloo",
+                     ranks=SHARDED_RANKS, bitwise=True,
+                     rounds=[s["rounds"] for s in serve],
+                     delete_ms=[s["delete_ms"] for s in serve],
+                     rebuild_ms=[s["rebuild_ms"] for s in serve],
+                     rebuild_info=serve[0]["rebuild_info"],
+                     rebuild_collectives=serve[0]["rebuild_collectives"],
+                     engine_stats=serve[0]["engine_stats"],
+                     row_all_reduce_bytes=serve[0]["row_all_reduce_bytes"],
+                     il_all_reduce_bytes=serve[0]["il_all_reduce_bytes"],
+                     card=card)
                 emit("sharded_4rank", config=name, backend="gloo",
                      ranks=SHARDED_RANKS, devices=[r["device"]
                                                    for r in ranks],

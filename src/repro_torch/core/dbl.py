@@ -84,6 +84,10 @@ not_ported = PL.not_ported
 
 _PLANES = ("dl_in", "dl_out", "bl_in", "bl_out")
 
+#: what serves a shard's queries
+_SERVE_SHARD = ("repro_torch.serve.engine.QueryEngine(index, "
+                "vertex_mesh=mesh), the same calls on every rank")
+
 
 def _host_reach(src: np.ndarray, dst: np.ndarray, live: np.ndarray,
                 seeds: np.ndarray) -> np.ndarray:
@@ -190,15 +194,15 @@ class DBLIndex:
 
     def _whole(self, what: str, counterpart: str | None = None) -> None:
         """Refuse a method that needs whole planes on a shard: it names
-        the sharded counterpart, or the queue entry that ports one, and
-        never gathers."""
+        the sharded counterpart, or says that there is none, and never
+        gathers."""
         if not self.layout.sharded:
             return
         if counterpart is not None:
             raise ValueError(f"{what} on a vertex-sharded index: use "
-                             f"repro_torch.core.distributed.{counterpart}")
-        raise not_ported(f"{what} on a vertex-sharded index",
-                         "queue 1, item 14b")
+                             f"{counterpart}")
+        raise ValueError(f"{what} needs whole label planes, which the "
+                         "vertex-sharded layout never gathers")
 
     # ---- construction (Alg 1) -------------------------------------------
     @staticmethod
@@ -248,7 +252,7 @@ class DBLIndex:
         """Batched reachability.  ``driver="engine"`` runs the QueryEngine
         (fused label phase + compacted BFS chunks); ``driver="host"`` runs
         the host-side reference loop."""
-        self._whole("query")
+        self._whole("query", _SERVE_SHARD)
         if driver == "host":
             return Q.query(self.graph, self.packed, u, v, n_cap=self.n_cap,
                            bfs_chunk=bfs_chunk, max_iters=max_iters,
@@ -262,7 +266,7 @@ class DBLIndex:
         return eng.run(self, u, v, return_stats=return_stats)
 
     def label_verdicts(self, u, v) -> torch.Tensor:
-        self._whole("label_verdicts")
+        self._whole("label_verdicts", _SERVE_SHARD)
         dev = self.device
         return Q.label_verdicts(
             self.packed, torch.as_tensor(u, dtype=torch.int32, device=dev),
@@ -277,7 +281,8 @@ class DBLIndex:
         so it warns, raises, or ("defer") only sets the sticky
         ``saturated`` flag.  Plug-in families run their insert hooks over
         the extended graph."""
-        self._whole("insert_edges", "insert_vertex_sharded")
+        self._whole("insert_edges",
+                    "repro_torch.core.distributed.insert_vertex_sharded")
         _check_mode(check)
         dev = self.device
         ns = torch.as_tensor(np.asarray(new_src, np.int32), device=dev)
@@ -335,7 +340,8 @@ class DBLIndex:
         (slots renumber: a rebuild starts a new snapshot lineage).  The
         snapshot epoch goes up by one; ``saturated`` reflects this
         rebuild's own fixpoints, surfaced by ``check`` as in ``build``."""
-        self._whole("rebuild_info", "rebuild_vertex_sharded")
+        self._whole("rebuild_info",
+                    "repro_torch.core.distributed.rebuild_vertex_sharded")
         if mode not in ("full", "delta", "auto"):
             raise ValueError(f"unknown rebuild mode {mode!r}")
         P.check_plane_repr(plane_repr)

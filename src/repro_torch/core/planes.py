@@ -27,6 +27,11 @@ order; no rank-local data decides a branch.
 
 Labels and round counts are bitwise equal to the replicated fixpoints:
 each round is the same edge relaxation with the rows partitioned.
+
+The query side reads rows, never planes: :func:`sharded_rows` and
+:func:`sharded_il_rows` rebuild a batch's verdict row blocks on every rank
+with one ``all_reduce`` each, and :func:`sharded_pruned_bfs` runs the
+residue BFS on the local rows, exchanging boundary frontier bits a round.
 """
 from __future__ import annotations
 
@@ -755,20 +760,35 @@ def halo_propagate(plan: ShardPlan, x: torch.Tensor, frontier: torch.Tensor,
     return _halo_reduce(mesh, dp, x, frontier, live, max_iters, "amax", 0)
 
 
+def _owned_rows(x: torch.Tensor, ids: torch.Tensor, lo: int) -> torch.Tensor:
+    """Rows of global ``ids`` in the local block ``x`` (global rows ``[lo,
+    lo + len(x))``), zero where this shard does not own the id."""
+    n_loc = x.shape[0]
+    ids = ids.long()
+    local = (ids >= lo) & (ids < lo + n_loc)
+    return torch.where(local[:, None], x[(ids - lo).clamp(0, n_loc - 1)],
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _reconstruct(mesh, blocks) -> list[torch.Tensor]:
+    """The owners' rows of every block on every rank: one
+    ``all_reduce(SUM)`` over the blocks concatenated along the columns.
+    Exact for any int32 (words with the top bit set, negative ranks):
+    each in-range row has one owner and every other shard adds zeros."""
+    cat = torch.cat(blocks, 1)
+    dist.all_reduce(cat, op=dist.ReduceOp.SUM, group=mesh.group)
+    return list(torch.split(cat, [b.shape[1] for b in blocks], 1))
+
+
 def _seed_rows(x, at_src, at_dst, mesh):
-    """(rows gathered at ``at_src`` from their owners, local destination
-    rows of ``at_dst`` owned here, their entry ids).  The gather is one
-    ``all_reduce(SUM)`` of masked local gathers: exact for any int32,
-    because each source row has exactly one owner and every other shard
-    adds zeros."""
+    """(the ``at_src`` rows of the entries whose ``at_dst`` row is owned
+    here, gathered from their owners by :func:`_reconstruct`, and those
+    local destination rows)."""
     n_loc = x.shape[0]
     lo = mesh.rank * n_loc
     ns = torch.as_tensor(at_src, device=x.device).long()
     nd = torch.as_tensor(at_dst, device=x.device).long()
-    src_local = (ns >= lo) & (ns < lo + n_loc)
-    rows = torch.where(src_local[:, None], x[(ns - lo).clamp(0, n_loc - 1)],
-                       torch.zeros((), dtype=x.dtype, device=x.device))
-    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=mesh.group)
+    rows, = _reconstruct(mesh, [_owned_rows(x, ns, lo)])
     owned = torch.nonzero((nd >= lo) & (nd < lo + n_loc)).squeeze(1)
     return rows[owned], nd[owned] - lo
 
@@ -795,3 +815,113 @@ def sharded_seed_scatter_min(x: torch.Tensor, at_src, at_dst, *, mesh
     """MIN twin of :func:`sharded_seed_scatter` for int32 rank planes:
     ``min(x[at_dst[i]], x[at_src[i]])`` row-wise."""
     return _seed_scatter(x, at_src, at_dst, mesh, "amin")
+
+
+# ------------------------------------------------ sharded query side
+def sharded_rows(p: Q.PackedLabels, u: torch.Tensor, v: torch.Tensor, *,
+                 mesh) -> Q.RowBlocks:
+    """The eight (Q, W) row blocks of ``query.gather_rows`` from
+    row-sharded word planes, on every rank: each shard gathers the (u, v)
+    rows it owns (zeros elsewhere) and one ``all_reduce(SUM)`` rebuilds
+    the blocks, O(Q·W) traffic and no all-gather.  Ids outside ``[0,
+    n_cap)`` (the engine's dead-lane sentinel ``n_cap``) have no owner
+    and come back as all-zero rows."""
+    lo = mesh.rank * p.dl_in.shape[0]
+    return Q.RowBlocks(*_reconstruct(mesh, [
+        _owned_rows(plane, ids, lo)
+        for plane, ids in ((p.dl_out, u), (p.dl_in, v), (p.dl_out, v),
+                           (p.dl_in, u), (p.bl_in, u), (p.bl_in, v),
+                           (p.bl_out, v), (p.bl_out, u))]))
+
+
+def sharded_il_rows(il, u: torch.Tensor, v: torch.Tensor, *, mesh):
+    """The four (Q, 2*dim) int32 interval rows of
+    ``query.gather_il_rows``, ``(il_out[u], il_out[v], il_in[u],
+    il_in[v])``, from row-sharded rank planes: the int32 twin of
+    :func:`sharded_rows`, one ``all_reduce(SUM)`` (exact for any-sign
+    ranks).  Unowned ids come back as zero rows; ``0 > 0`` never holds,
+    so such lanes never prune."""
+    il_in, il_out = il
+    lo = mesh.rank * il_in.shape[0]
+    return tuple(_reconstruct(mesh, [
+        _owned_rows(plane, ids, lo)
+        for plane, ids in ((il_out, u), (il_out, v), (il_in, u),
+                           (il_in, v))]))
+
+
+def _lane_state(mesh, frontier: torch.Tensor, hit_loc: torch.Tensor
+                ) -> torch.Tensor:
+    """(1 + Qc,) int64 on every rank: the global frontier count, then
+    the per-lane hit counts; one ``all_reduce``."""
+    t = torch.cat([frontier.sum(dtype=torch.int64).reshape(1),
+                   hit_loc.to(torch.int64)])
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+    return t
+
+
+def sharded_pruned_bfs(plan: ShardPlan, p: Q.PackedLabels,
+                       rows: Q.RowBlocks, u: torch.Tensor, v: torch.Tensor,
+                       live: torch.Tensor, m_cut: torch.Tensor, m_total,
+                       dl_clean, *, max_iters: int = 256,
+                       frontier_dtype: str = "int8") -> torch.Tensor:
+    """(Qc,) bool on every rank: the vertex-sharded twin of
+    ``query.pruned_bfs`` over the plan's ``fwd`` direction, bitwise equal
+    to it.
+
+    The admit, frontier and visited planes hold this rank's rows.  The
+    admit block comes from the local plane rows and the reconstructed
+    query rows (``rows``, from :func:`sharded_rows`), with the DL term
+    gated by ``(m_cut >= m_total) & dl_clean``.  Each round exchanges the
+    boundary frontier bits, (d, H, Qc) uint8, through the plan's halo
+    lists (one ``all_to_all_single``), relaxes the round's active bucket
+    entries under the per-lane edge-count cutoff, and gates by admit,
+    visited and hit.  One ``all_reduce`` a round carries the global
+    frontier count and the per-lane hits, found on the rank that owns
+    ``v``; one host read a round decides the loop, as the reference's
+    ``cond`` does (frontier alive, some lane not hit, ``it <
+    max_iters``).  Dead lanes carry ``u = n_cap``: no rank owns it, so
+    their frontier starts empty.  The interval prune is not applied: it
+    is sound, so the hits are the same without it."""
+    if frontier_dtype not in ("int8", "int32"):
+        raise ValueError("the sharded residue BFS keeps per-lane frontier "
+                         f"planes: frontier_dtype 'int8' or 'int32', not "
+                         f"{frontier_dtype!r}")
+    ftype = Q.FRONTIER_DTYPES[frontier_dtype]
+    mesh, dp = plan.mesh, plan.fwd
+    n_loc = p.dl_in.shape[0]
+    lo = mesh.rank * n_loc
+    dev = p.dl_in.device
+    qc = u.shape[0]
+    d, H = dp.h_send.shape
+    dl_on = (m_cut >= m_total) & dl_clean
+    admit = Q.admit_rows(p.bl_in, p.bl_out, p.dl_in, rows.dlo_u,
+                         rows.blin_v, rows.blout_v, dl_on)
+    ids = torch.arange(lo, lo + n_loc, device=dev)
+    fr = ids[:, None] == u[None, :].long()                 # (n_loc, Qc)
+    visited = fr.clone()
+    hit = torch.zeros(qc, dtype=torch.bool, device=dev)
+    owns_v = (v >= lo) & (v < lo + n_loc)
+    vloc = (v.long() - lo).clamp(0, n_loc - 1)
+    lanes = torch.arange(qc, device=dev)
+    cut = m_cut.long()
+    edge_ok = live[dp.e_gid] & dp.e_valid
+    state = _lane_state(mesh, fr, hit)
+    it = 0
+    while it < max_iters and bool((state[0] > 0) & ~hit.all()):
+        sf = dp.h_valid[..., None] & fr[dp.h_send]         # (d, H, Qc)
+        rf = _exchange(mesh, sf.to(torch.uint8))
+        frc = torch.cat([fr, rf.reshape(d * H, qc).bool()])
+        # the round's active entries: a frontier pusher, live, not padding
+        eidx = torch.nonzero(frc.any(1)[dp.e_slot] & edge_ok).squeeze(1)
+        contrib = frc[dp.e_slot[eidx]] & \
+            (dp.e_gid[eidx][:, None] < cut[None, :])
+        nxt = torch.zeros((n_loc, qc), dtype=ftype, device=dev)
+        nxt.index_reduce_(0, dp.e_recv[eidx], contrib.to(ftype), "amax",
+                          include_self=True)
+        nxt = (nxt > 0) & admit & ~visited & ~hit[None, :]
+        state = _lane_state(mesh, nxt, nxt[vloc, lanes] & owns_v)
+        hit = hit | (state[1:] > 0)
+        visited |= nxt
+        fr = nxt
+        it += 1
+    return hit

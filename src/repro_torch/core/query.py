@@ -191,23 +191,34 @@ def il_violation_plane(il, v: torch.Tensor) -> torch.Tensor:
             | (rows(il_in, v)[None, :, :] > il_in[:, None, :]).any(-1))
 
 
-def _admit_plane(p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
-                 n_cap: int, dl_on: torch.Tensor | None = None,
-                 il=None) -> torch.Tensor:
-    """(n_cap, Qc) bool: vertices x admissible in query q's BFS.
+def admit_rows(bl_in: torch.Tensor, bl_out: torch.Tensor,
+               dl_in: torch.Tensor, dlo_u: torch.Tensor, blin_v: torch.Tensor,
+               blout_v: torch.Tensor, dl_on: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """(rows, Qc) bool admit block of the plane rows ``bl_in``/``bl_out``/
+    ``dl_in`` (rows, W) against the query rows ``dlo_u`` = DL_out(u_q),
+    ``blin_v`` = BL_in(v_q), ``blout_v`` = BL_out(v_q) (Qc, W):
 
     admit = BL_in(x) ⊆ BL_in(v_q) ∧ BL_out(v_q) ⊆ BL_out(x)
             ∧ ¬(DL_out(u_q) ∩ DL_in(x) ≠ ∅)
     ``dl_on`` (Qc,) gates the DL term per lane (off for epoch-stale or
-    deletion-stale lanes).  ``il`` = (il_in, il_out) adds ¬IL_Violate(x,
-    v_q)."""
-    c1 = bitset.subset(p.bl_in[:, None, :], rows(p.bl_in, v)[None, :, :])
-    c2 = bitset.subset(rows(p.bl_out, v)[None, :, :], p.bl_out[:, None, :])
-    d = bitset.intersect_any(rows(p.dl_out, u)[None, :, :],
-                             p.dl_in[:, None, :])
+    deletion-stale lanes).  Row-parallel: a shard passes its own rows."""
+    c1 = bitset.subset(bl_in[:, None, :], blin_v[None, :, :])
+    c2 = bitset.subset(blout_v[None, :, :], bl_out[:, None, :])
+    d = bitset.intersect_any(dlo_u[None, :, :], dl_in[:, None, :])
     if dl_on is not None:
         d = d & dl_on[None, :]
-    admit = c1 & c2 & ~d
+    return c1 & c2 & ~d
+
+
+def _admit_plane(p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
+                 n_cap: int, dl_on: torch.Tensor | None = None,
+                 il=None) -> torch.Tensor:
+    """(n_cap, Qc) bool: vertices x admissible in query q's BFS
+    (:func:`admit_rows` over every row).  ``il`` = (il_in, il_out) adds
+    ¬IL_Violate(x, v_q)."""
+    admit = admit_rows(p.bl_in, p.bl_out, p.dl_in, rows(p.dl_out, u),
+                       rows(p.bl_in, v), rows(p.bl_out, v), dl_on)
     if il is not None:
         admit = admit & ~il_violation_plane(il, v)
     return admit

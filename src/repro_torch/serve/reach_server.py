@@ -14,7 +14,12 @@ query boundary.
   snapshot epochs.  ``consistency`` is ``"as-of-submit"`` (each query
   answered against the snapshot it observed) or ``"latest"``.
 
+``vertex_mesh=`` serves a vertex-sharded index (``QueryEngine``'s
+``vertex_mesh``): one process a shard, every rank making the same calls.
+
     python -m repro_torch.serve.reach_server [--device cuda|cpu] ...
+    torchrun --nproc_per_node N -m repro_torch.serve.reach_server \
+        --vertex-shards N [--device cpu] ...
 """
 from __future__ import annotations
 
@@ -77,6 +82,7 @@ class ReachabilityServer:
 
     def __init__(self, index: DBLIndex | None, *, bfs_chunk: int = 256,
                  max_iters: int = 256, backend: str = "auto",
+                 vertex_mesh=None,
                  engine: QueryEngine | None = None,
                  consistency: str = "as-of-submit",
                  rebuild_dead_ratio: float | None = 0.25,
@@ -96,7 +102,8 @@ class ReachabilityServer:
         else:
             self.engine = QueryEngine(
                 index, bfs_chunk=bfs_chunk, max_iters=max_iters,
-                backend=backend, consistency=consistency,
+                backend=backend, vertex_mesh=vertex_mesh,
+                consistency=consistency,
                 flush_policy=flush_policy,
                 flush_deadline_ms=flush_deadline_ms,
                 flush_watermark=flush_watermark, device=device)
@@ -227,18 +234,39 @@ class ReachabilityServer:
         d["rebuild_due"] = self._rebuild_due
         d["rebuild_mode"] = self.rebuild_mode
         d["last_rebuild"] = self.engine.last_rebuild_info
+        d["layout"] = self.engine.layout
         d["flush_policy"] = self.engine.flush_policy
         return d
 
 
+def _vertex_world(shards: int, device):
+    """The vertex mesh of a ``--vertex-shards`` run, and whether this call
+    set up the process group (and so takes it down).  A group not set up
+    yet is made from the launcher's environment (``torchrun``): NCCL on
+    CUDA, gloo on the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import vertex_mesh
+    from repro_torch.device import resolve_device
+    own = not dist.is_initialized()
+    if own:
+        cpu = resolve_device(device).type == "cpu"
+        dist.init_process_group("gloo" if cpu else "nccl",
+                                init_method="env://")
+    try:
+        return vertex_mesh(shards, device=device), own
+    except BaseException:
+        if own:
+            dist.destroy_process_group()
+        raise
+
+
 def main(argv=None):
     """Serving driver: build an index over a generated power-law graph,
-    run an interleaved query/insert stream, print stats as JSON."""
+    run an interleaved query/insert stream, print stats as JSON.
+    ``--vertex-shards N`` serves it vertex-sharded over N ranks, one
+    process each (``torchrun --nproc_per_node N``); rank 0 prints."""
     import argparse
-    import json
-
-    from repro_torch.core.graph import make_graph
-    from repro_torch.graphs.generators import power_law
 
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("--n", type=int, default=2048)
@@ -252,14 +280,34 @@ def main(argv=None):
                          "on the CPU)")
     ap.add_argument("--flush-policy", default=None,
                     choices=["deadline", "watermark"])
+    ap.add_argument("--vertex-shards", type=int, default=0,
+                    help="serve with vertex-sharded label planes over this "
+                         "many ranks (0 = replicated)")
     a = ap.parse_args(argv)
 
+    vmesh, own_group = None, False
+    if a.vertex_shards:
+        vmesh, own_group = _vertex_world(a.vertex_shards, a.device)
+    try:
+        _serve(a, vmesh)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _serve(a, vmesh):
+    import json
+
+    from repro_torch.core.graph import make_graph
+    from repro_torch.graphs.generators import power_law
+
+    dev = a.device if vmesh is None else vmesh.device
     src, dst = power_law(a.n, a.m, seed=0)
-    g = make_graph(src, dst, a.n, m_cap=a.m + a.rounds * 64,
-                   device=a.device)
-    idx = DBLIndex.build(g, n_cap=a.n, k=a.k, k_prime=a.k, device=a.device)
+    g = make_graph(src, dst, a.n, m_cap=a.m + a.rounds * 64, device=dev)
+    idx = DBLIndex.build(g, n_cap=a.n, k=a.k, k_prime=a.k, device=dev)
     t0 = time.perf_counter()
-    srv = ReachabilityServer(idx, backend=a.backend,
+    srv = ReachabilityServer(idx, backend=a.backend, vertex_mesh=vmesh,
                              flush_policy=a.flush_policy)
     rng = np.random.default_rng(0)
     for r in range(a.rounds):
@@ -271,6 +319,8 @@ def main(argv=None):
                        rng.integers(0, a.n, 64).astype(np.int32))
         srv.poll()
     srv.flush()
+    if vmesh is not None and vmesh.rank:
+        return
     print(json.dumps({"wall_s": time.perf_counter() - t0,
                       **srv.stats.as_dict(),
                       "engine": srv.engine_stats()}, indent=2, default=str))

@@ -8,8 +8,8 @@ Runs itself as a script in a subprocess, as
 ``tests/test_torch_sharded_planes.py`` does (its rank harness and
 runners).  The cases twin ``tests/distributed/run_sharded_il.py``'s
 ``lifecycle`` without its ``sharded_il_rows`` step and ``engine_stream``
-(the sharded query side is not ported yet), then run the same lifecycle
-with word planes."""
+(``tests/test_torch_sharded_engine.py`` twins those), then run the same
+lifecycle with word planes."""
 import sys
 from pathlib import Path
 

@@ -17,8 +17,8 @@ The cases are twins of ``tests/distributed/run_sharded_planes.py``'s
 ``lifecycle_differential``, ``scc_merge_split_cascade``,
 ``degenerate_halo_or_noop`` and ``packed_sharded_parity`` and
 ``run_plan_extension.py``'s ``lifecycle_labels_bitwise`` and
-``catchup_window_reinsert``, without their engine and query steps (the
-sharded query side is not ported yet).
+``catchup_window_reinsert``, without their engine and query steps, which
+``tests/test_torch_sharded_engine.py`` twins on this harness.
 """
 import json
 import os
@@ -84,8 +84,9 @@ def lifecycle_differential(run):
         run.insert(f"insert{r}", prev, ns, nd, max_iters=64)
         prev = f"insert{r}"
     run.delete("delete", prev, src[10:60], dst[10:60])
-    # the reference's dirty query batch (the sharded query side is not
-    # ported), drawn so the later insert gets the reference's edges
+    # the reference's dirty query batch (served in
+    # test_torch_sharded_engine.py), drawn so the later insert gets the
+    # reference's edges
     rng.integers(0, n, 600), rng.integers(0, n, 600)
     run.rebuild("delta", "delete", mode="delta", max_iters=64)
     run.rebuild("full", "delete", mode="full", max_iters=64)
@@ -449,8 +450,10 @@ def jax_api():
 
 
 # ------------------------------------------------------ the rank script
-def _rank_main(rank, world, store_path, out_dir, cases):
-    """One gloo rank: the cases' lifecycles on this rank's shard."""
+def _rank_main(rank, world, store_path, out_dir, cases, runner=None):
+    """One gloo rank: the cases on this rank's shard, each given a
+    ``runner(mesh, rec, case)`` (default :class:`ShardRun`)."""
+    runner = runner or ShardRun
     torch.set_num_threads(1)
     store = dist.FileStore(store_path, world)
     dist.init_process_group("gloo", store=store, rank=rank,
@@ -468,7 +471,7 @@ def _rank_main(rank, world, store_path, out_dir, cases):
             rec["mesh|cuda_default_raises"] = np.bool_(raised)
         mesh = TD.vertex_mesh(WORLD, device="cpu")
         for name, fn in cases:
-            fn(ShardRun(mesh, rec, name))
+            fn(runner(mesh, rec, name))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **rec)
     finally:
         dist.destroy_process_group()
@@ -481,13 +484,13 @@ def fail_on_rank_2(run):
     dist.barrier()
 
 
-def script_main(argv, cases):
+def script_main(argv, cases, runner=None):
     """``<out_dir> <case>...``: spawn the ranks and run the cases."""
     out_dir, names = argv[0], argv[1:]
     torch.multiprocessing.spawn(
         _rank_main, nprocs=WORLD, join=True,
         args=(WORLD, os.path.join(out_dir, "store"), out_dir,
-              [(name, cases[name]) for name in names]))
+              [(name, cases[name]) for name in names], runner))
 
 
 # ----------------------------------------------------------- pytest side
@@ -671,18 +674,22 @@ def test_placed_shards_are_row_blocks_and_refuse_whole_plane_methods():
         TPL.per_device_label_bytes(idx)
     assert s.store.label_bytes() == idx.store.label_bytes()
     assert s.store.rows == slice(16, 32)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        s.query([0], [1], driver="host")
-    for call in (lambda: s.label_verdicts([0], [1]), s.density,
-                 s.to_numpy):
-        with pytest.raises(NotImplementedError, match="item 14b"):
+    # a shard's queries go through the sharded engine; whole-plane reads
+    # stay refused by design
+    for call in (lambda: s.query([0], [1], driver="host"),
+                 lambda: s.label_verdicts([0], [1])):
+        with pytest.raises(ValueError, match=r"QueryEngine\(index, "
+                                             r"vertex_mesh=mesh\)"):
+            call()
+    for call in (s.density, s.to_numpy):
+        with pytest.raises(ValueError, match="never gathers"):
             call()
     with pytest.raises(ValueError, match="insert_vertex_sharded"):
         s.insert_edges([0], [1])
     with pytest.raises(ValueError, match="rebuild_vertex_sharded"):
         s.rebuild_info(mode="full")
     from repro_torch.serve.engine import QueryEngine
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(ValueError, match="vertex_mesh="):
         QueryEngine(s)
     # a delete touches only the replicated graph and keeps the layout
     d = s.delete_edges(src[:5], dst[:5])
