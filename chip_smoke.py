@@ -85,8 +85,27 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    bool shard.  Lines ``sharded_world1``, ``sharded_serve_world1``,
    ``sharded_serve_profile``, ``sharded_4rank`` and
    ``sharded_serve_4rank`` (or ``sharded_4rank_refused``) and
-   ``sharded_bytes``.  No kernel is on this path.
-8. the ``kernels`` summary line, then the ``ok`` line last.
+   ``sharded_bytes``.  No kernel is on this path.  Every lifecycle step
+   also runs with the sparse halo (``halo_mode="sparse", hub_count=8``,
+   the two modes in turns, after one untimed build in each world), held
+   bitwise the same way with equal rounds;
+   lines ``sharded_sparse_world1`` and ``sharded_sparse_4rank`` give the
+   steps' ms beside the dense ones, both modes' halo telemetry (at 4
+   ranks the sparse one must model fewer bytes) and the calls and bytes
+   counted at ``all_to_all_single`` and ``all_reduce``; a world of one
+   has no pairs, so its sparse rounds must all be local with no
+   ``all_to_all_single``.
+8. query_mesh: in the same two worlds, a ``ReachabilityServer(mesh=
+   distributed.query_mesh())`` over ``QueryEngine(bfs_kernel=True)``
+   beside a replicated server, both on a fresh LJ index at full size:
+   a round of 20 000 queries then 100 inserts, a pipelined round, a
+   delete of 500 single-slot pairs, a dirty round, the delta rebuild and
+   a clean round.  Every answer and the engine stats equal the
+   replicated server's, and each label phase issues one all-gather and
+   no other collective.  The kernels' launches on the mesh server's
+   calls add to the grid kernels' counts.  Lines ``query_mesh_world1``
+   and ``query_mesh_4rank``.
+9. the ``kernels`` summary line, then the ``ok`` line last.
 """
 import json
 import re
@@ -145,6 +164,9 @@ SHARDED_INSERTS = 2
 SHARDED_SERVE_ROUNDS = 2
 SHARDED_RANKS = 4
 SHARDED_TIMEOUT_S = 600
+#: the sparse halo's setting beside each sharded lifecycle: the reference
+#: bench's (``benchmarks/bench_dbl_perf.py:614``)
+SPARSE_HALO = dict(halo_mode="sparse", hub_count=8)
 
 
 def emit(phase, **kw):
@@ -1235,17 +1257,21 @@ def _hold_shard(step, mesh, shard, rep, rounds, want_rounds, info=None,
 
 
 class _Collectives:
-    """Counts the ``torch.distributed`` calls of the sharded serving path
-    (``all_reduce`` with its bytes, ``all_to_all_single``) and the
-    residue chunks (``planes.sharded_pruned_bfs`` calls) while installed;
-    an all-gather or a broadcast raises."""
+    """Counts the ``torch.distributed`` calls of a sharded path
+    (``all_reduce`` and ``all_to_all_single`` with the bytes of the tensor
+    each sends) and the residue chunks (``planes.sharded_pruned_bfs``
+    calls) while installed; an all-gather raises, unless ``gather`` (the
+    query mesh's label phase) counts it, and a broadcast always does."""
 
     COUNTED = ("all_reduce", "all_to_all_single")
-    FORBIDDEN = ("all_gather", "all_gather_into_tensor", "broadcast")
+    GATHERS = ("all_gather", "all_gather_into_tensor", "all_gather_single")
 
-    def __init__(self):
+    def __init__(self, gather: bool = False):
+        self.gather = gather
         self.n = dict.fromkeys(self.COUNTED + ("bfs_chunks",
-                                               "all_reduce_bytes"), 0)
+                                               "all_reduce_bytes",
+                                               "all_to_all_single_bytes",
+                                               "gathers"), 0)
         self.saved = {}
 
     def __enter__(self):
@@ -1255,21 +1281,30 @@ class _Collectives:
         def counted(name, fn):
             def call(*a, **kw):
                 self.n[name] += 1
-                if name == "all_reduce":
-                    self.n["all_reduce_bytes"] += \
-                        a[0].numel() * a[0].element_size()
+                if name in self.COUNTED:
+                    sent = a[0] if name == "all_reduce" else a[1]
+                    self.n[f"{name}_bytes"] += \
+                        sent.numel() * sent.element_size()
                 return fn(*a, **kw)
             return call
 
         def forbidden(name):
             def call(*a, **kw):
-                raise AssertionError(f"{name} on the sharded serving path")
+                raise AssertionError(f"{name} on a sharded path")
             return call
 
-        for name in self.COUNTED + self.FORBIDDEN:
-            self.saved[(dist, name)] = getattr(dist, name)
-            setattr(dist, name, counted(name, getattr(dist, name))
-                    if name in self.COUNTED else forbidden(name))
+        names = [n for n in self.COUNTED + self.GATHERS + ("broadcast",)
+                 if hasattr(dist, n)]
+        for name in names:
+            fn = getattr(dist, name)
+            self.saved[(dist, name)] = fn
+            if name in self.COUNTED:
+                wrapped = counted(name, fn)
+            elif name in self.GATHERS and self.gather:
+                wrapped = counted("gathers", fn)
+            else:
+                wrapped = forbidden(name)
+            setattr(dist, name, wrapped)
         self.saved[(PL, "sharded_pruned_bfs")] = PL.sharded_pruned_bfs
         PL.sharded_pruned_bfs = counted("bfs_chunks", PL.sharded_pruned_bfs)
         return self
@@ -1463,14 +1498,20 @@ def sharded_serve(mesh, extra, profile_card=None):
 def sharded_lifecycle(mesh, extra, profile_card=None):
     """The LJ lifecycle on this rank's shard beside the replicated port on
     the same card: build, SHARDED_INSERTS inserts, a delete of DELETES
-    single-slot pairs, the delta and the full rebuild.  Every step is held
-    bit for bit (``_hold_shard``).  Then the serving stream
-    (:func:`sharded_serve`).  Returns the steps' times (ms, sharded and
-    replicated), rounds, the delta rebuild's info and the stream's
-    results under "serve"."""
+    single-slot pairs, the delta and the full rebuild.  Each step runs
+    twice on the shard, with the dense halo and with the sparse one
+    (SPARSE_HALO), and both are held bit for bit (``_hold_shard``): the
+    sparse shard's rounds equal the dense one's.  Each mode has its own
+    halo telemetry and its own count of the collectives' calls and bytes.
+    Then the serving stream (:func:`sharded_serve`).  Returns the steps'
+    times (ms, dense, sparse and replicated), rounds, the delta rebuild's
+    info, the halo accounting under "halo" and the stream's results under
+    "serve"."""
     import torch
+    import torch.distributed as dist
     from repro_torch.core import DBLIndex, make_graph
     from repro_torch.core import distributed as D
+    from repro_torch.core import halo as HL
     from repro_torch.core import planes as PL
     from repro_torch.graphs.generators import table2_graph
 
@@ -1482,23 +1523,53 @@ def sharded_lifecycle(mesh, extra, profile_card=None):
                    device=dev)
     kw = dict(max_iters=64, check="raise")
     pr = {k: v for k, v in extra.items() if k == "plane_repr"}
-    out = {"ms": {}, "replicated_ms": {}, "rounds": {}}
+    out = {"ms": {}, "sparse_ms": {}, "replicated_ms": {}, "rounds": {}}
+    tel = {"dense": HL.HaloTelemetry(), "sparse": HL.HaloTelemetry()}
+    wire = {"dense": _Collectives(), "sparse": _Collectives()}
+    halo = {"dense": dict(telemetry=tel["dense"]),
+            "sparse": dict(halo_mode="sparse", telemetry=tel["sparse"])}
 
     def step(name, shard_fn, rep_fn):
-        rounds = []
-        shard, out["ms"][name] = _sync_time(lambda: shard_fn(rounds))
+        """``shard_fn(mode, rounds)`` for both modes, in turns (dense
+        first on every other step), then ``rep_fn``.  Every rank waits
+        for the others before each timed call, so no rank times its
+        peers' untimed replicated work."""
+        res = {}
+        modes = (("dense", "ms"), ("sparse", "sparse_ms"))
+        for mode, key in modes[::1 if len(out["ms"]) % 2 == 0 else -1]:
+            rounds = []
+            dist.all_reduce(torch.zeros(1, device=dev), group=mesh.group)
+            with wire[mode]:
+                shard, out[key][name] = _sync_time(
+                    lambda: shard_fn(mode, rounds))
+            res[mode] = (shard, rounds)
         rep, out["replicated_ms"][name] = _sync_time(rep_fn)
-        return shard, rep, rounds
+        return res, rep
 
-    (shard, plan), rep, rounds = step(
-        "build",
-        lambda r: D.build_vertex_sharded(g, mesh, n_cap=n, k=64,
-                                         k_prime=64, rounds=r, **kw,
-                                         **extra),
-        lambda: DBLIndex.build(g, n_cap=n, k=64, k_prime=64, device=dev,
-                               **kw, **extra))
-    out["rounds"]["build"] = _hold_shard(
-        "build", mesh, shard, rep, rounds, _replicated_rounds("build", rep))
+    def hold(name, res, rep, want_rounds, want_info=None):
+        """Both modes against the replicated index; their rounds."""
+        got = {}
+        for mode, (shard, rounds) in res.items():
+            info = shard[2] if want_info is not None else None
+            got[mode] = _hold_shard(f"{name} ({mode} halo)", mesh, shard[0],
+                                    rep, rounds, want_rounds, info,
+                                    want_info)
+        return got["dense"]
+
+    def build(mode, r):
+        hub = {"hub_count": SPARSE_HALO["hub_count"]} \
+            if mode == "sparse" else {}
+        return D.build_vertex_sharded(g, mesh, n_cap=n, k=64, k_prime=64,
+                                      rounds=r, **kw, **extra, **hub,
+                                      **halo[mode])
+
+    res, rep = step("build", build,
+                    lambda: DBLIndex.build(g, n_cap=n, k=64, k_prime=64,
+                                           device=dev, **kw, **extra))
+    out["rounds"]["build"] = hold("build", res, rep,
+                                  _replicated_rounds("build", rep))
+    state = {mode: res[mode][0] for mode in res}     # (shard, plan)
+    plan = state["dense"][1]
     # the host's share of a build: the plan alone (both directions'
     # tables built with numpy and this rank's rows uploaded)
     _, out["plan_ms"] = _sync_time(
@@ -1507,7 +1578,7 @@ def sharded_lifecycle(mesh, extra, profile_card=None):
     out["halo_rows"] = [int(plan.fwd.h_send.shape[1]),
                         int(plan.bwd.h_send.shape[1])]
     out["fwd_bucket_edges"] = int(plan.fwd.e_valid.sum())
-    out["label_bytes"] = [PL.per_device_label_bytes(shard),
+    out["label_bytes"] = [PL.per_device_label_bytes(state["dense"][0]),
                           PL.per_device_label_bytes(rep)]
     for b in range(SHARDED_INSERTS):
         ns = rng.integers(0, n, INSERTS).astype(np.int32)
@@ -1515,41 +1586,187 @@ def sharded_lifecycle(mesh, extra, profile_card=None):
         prev = rep
         out["extend_ms"].append(
             _sync_time(lambda: PL.extend_plan(plan, ns, nd))[1])
-        (shard, plan, _), rep, rounds = step(
+        res, rep = step(
             f"insert{b}",
-            lambda r: D.insert_vertex_sharded(shard, plan, ns, nd,
-                                              rounds=r, **kw, **pr),
+            lambda mode, r: D.insert_vertex_sharded(
+                *state[mode], ns, nd, rounds=r, **kw, **pr, **halo[mode]),
             lambda: prev.insert_edges(ns, nd, **kw, **pr))
-        out["rounds"][f"insert{b}"] = _hold_shard(
-            f"insert{b}", mesh, shard, rep, rounds,
+        out["rounds"][f"insert{b}"] = hold(
+            f"insert{b}", res, rep,
             _replicated_rounds("insert", rep, prev, torch.from_numpy(ns)
                                .to(dev), torch.from_numpy(nd).to(dev)))
+        state = {mode: res[mode][0][:2] for mode in res}
+        plan = state["dense"][1]
     ls, ld = live_edges(rep.graph)
     pairs, mult = np.unique(ls.astype(np.int64) * n + ld,
                             return_counts=True)
     pick = rng.choice(pairs[mult == 1], DELETES, replace=False)
     ds, dd = (pick // n).astype(np.int32), (pick % n).astype(np.int32)
-    shard, rep = shard.delete_edges(ds, dd), rep.delete_edges(ds, dd)
-    _hold_shard("delete", mesh, shard, rep, [], [])
-    for mode in ("delta", "full"):
-        (s2, _, info), (r2, want), rounds = step(
-            mode,
-            lambda r: D.rebuild_vertex_sharded(shard, plan, mode=mode,
-                                               rounds=r, **kw, **pr),
-            lambda: rep.rebuild_info(mode=mode, **kw, **pr))
+    state = {mode: (sh.delete_edges(ds, dd), pl)
+             for mode, (sh, pl) in state.items()}
+    rep = rep.delete_edges(ds, dd)
+    for mode in state:
+        _hold_shard(f"delete ({mode} halo)", mesh, state[mode][0], rep, [],
+                    [])
+    for rmode in ("delta", "full"):
+        res, (r2, want) = step(
+            rmode,
+            lambda mode, r: D.rebuild_vertex_sharded(
+                *state[mode], mode=rmode, rounds=r, **kw, **pr,
+                **halo[mode]),
+            lambda: rep.rebuild_info(mode=rmode, **kw, **pr))
         kind = "delta" if want["mode"] == "delta" else "build"
-        out["rounds"][mode] = _hold_shard(
-            mode, mesh, s2, r2, rounds,
-            _replicated_rounds(kind, r2, rep), info, want)
-        if mode == "delta":
-            out["delta_info"] = info
+        out["rounds"][rmode] = hold(rmode, res, r2,
+                                    _replicated_rounds(kind, r2, rep), want)
+        if rmode == "delta":
+            out["delta_info"] = res["dense"][0][2]
+    out["halo"] = {mode: {"telemetry": tel[mode].as_dict(),
+                          "wire": {k: c for k, c in wire[mode].n.items()
+                                   if k not in ("bfs_chunks", "gathers")}}
+                   for mode in tel}
+    td = out["halo"]["dense"]["telemetry"]
+    ts = out["halo"]["sparse"]["telemetry"]
+    if ts["halo_rounds"] != td["halo_rounds"] \
+            or ts["fixpoints"] != td["fixpoints"]:
+        raise AssertionError(f"sparse halo rounds {ts} != dense {td}")
+    if mesh.size == 1 and (ts["local_rounds"] != ts["halo_rounds"]
+                           or out["halo"]["sparse"]["wire"]
+                           ["all_to_all_single"]):
+        raise AssertionError("a world of one has no pairs: its sparse "
+                             f"rounds must all be local, not {ts}, "
+                             f"{out['halo']['sparse']['wire']}")
     out["serve"] = sharded_serve(mesh, extra, profile_card)
     return out
 
 
+def query_mesh_serve(mesh):
+    """``ReachabilityServer(mesh=query mesh)`` over ``QueryEngine(
+    bfs_kernel=True)`` beside a replicated server on the same card, both
+    on the LJ preset at full width: a round of QUERIES queries then INSERTS
+    inserts, a submit -> insert -> flush round, a delete of DELETES
+    single-slot pairs, a dirty round, the delta rebuild and a clean round.
+    Every answer and the engine stats equal the replicated server's; each
+    label phase on the mesh issues one all-gather and no other collective.
+    The kernels' launches are counted over the mesh server's calls only
+    (each counter set to 0 just before a call and read just after).
+    Returns the rounds' times, the collectives and the launches."""
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.graphs.generators import table2_graph
+    from repro_torch.kernels.bfs_prune.bfs_prune import bfs_admit_plane
+    from repro_torch.kernels.dbl_query.dbl_query import dbl_query_verdicts
+    from repro_torch.serve.engine import QueryEngine
+    from repro_torch.serve.reach_server import ReachabilityServer
+
+    dev = mesh.device
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    m = int(src.size)
+    rng = np.random.default_rng(9)
+
+    def server(**layout):
+        # each server its own graph and index: the replicated engine
+        # rewrites its planes in place on insert (donation)
+        g = make_graph(src, dst, n, m_cap=m + 3 * INSERTS, device=dev)
+        idx = DBLIndex.build(g, n_cap=n, k=64, k_prime=64, max_iters=64,
+                             check="raise", device=dev)
+        return ReachabilityServer(None, engine=QueryEngine(
+            idx, bfs_chunk=BFS_CHUNK, max_iters=64, bfs_kernel=True,
+            **layout), rebuild_dead_ratio=None)
+
+    srvs = {"mesh": server(mesh=mesh), "replicated": server()}
+    counters = {"verdicts_kernel": dbl_query_verdicts,
+                "admit_kernel": bfs_admit_plane}
+    launches = dict.fromkeys(counters, 0)
+    counts = _Collectives(gather=True)
+    out = {"lanes_per_rank": -(-LABEL_Q // mesh.size), "rounds": []}
+
+    def call(name, fn):
+        """(result, ms) of ``fn(server)``; on the mesh server with its
+        launches and collectives counted."""
+        srv = srvs[name]
+        if name != "mesh":
+            return _sync_time(lambda: fn(srv))
+        for k in counters.values():
+            k.launches = 0
+        with counts:
+            res = _sync_time(lambda: fn(srv))
+        for name_, k in counters.items():
+            launches[name_] += k.launches
+        return res
+
+    def served_round(r, mode):
+        u = rng.integers(0, n, QUERIES).astype(np.int32)
+        v = rng.integers(0, n, QUERIES).astype(np.int32)
+        ns = rng.integers(0, n, INSERTS).astype(np.int32)
+        nd = rng.integers(0, n, INSERTS).astype(np.int32)
+        line = {"round": r, "mode": mode,
+                "dirty": srvs["replicated"].dirty}
+        answers = {}
+        counts.take()
+        for name in srvs:
+            i_ms = 0.0
+            if mode == "submit-insert-flush":
+                _, q_ms = call(name, lambda s: s.submit(u, v))
+                _, i_ms = call(name, lambda s: s.insert(ns, nd))
+                ans, f_ms = call(name, lambda s: s.flush(
+                    consistency="as-of-submit")[0])
+                q_ms += f_ms
+            else:
+                ans, q_ms = call(name, lambda s: s.query(u, v))
+                if mode == "query-then-insert":
+                    _, i_ms = call(name, lambda s: s.insert(ns, nd))
+            answers[name] = ans
+            line[name] = {"query_ms": q_ms, "insert_ms": i_ms}
+        line["collectives"] = counts.take()
+        if not np.array_equal(answers["mesh"], answers["replicated"]):
+            raise AssertionError(f"query mesh round {r}: answers differ "
+                                 "from the replicated server's")
+        c = line["collectives"]
+        if (c["gathers"], c["all_reduce"], c["all_to_all_single"]) \
+                != (1, 0, 0):
+            raise AssertionError(f"query mesh round {r}: one all-gather "
+                                 f"per label phase, not {c}")
+        out["rounds"].append(line)
+
+    served_round(0, "query-then-insert")
+    served_round(1, "submit-insert-flush")
+    ls, ld = live_edges(srvs["replicated"].index.graph)
+    pairs, mult = np.unique(ls.astype(np.int64) * n + ld, return_counts=True)
+    pick = rng.choice(pairs[mult == 1], DELETES, replace=False)
+    ds, dd = (pick // n).astype(np.int32), (pick % n).astype(np.int32)
+    out["delete_ms"] = {name: call(name, lambda s: s.delete(ds, dd))[1]
+                        for name in srvs}
+    served_round(2, "dirty")
+    out["rebuild_ms"] = {name: call(name, lambda s: s.rebuild(
+        mode="delta"))[1] for name in srvs}
+    served_round(3, "clean")
+    stats = [srv.engine.stats.as_dict() for srv in srvs.values()]
+    if stats[0] != stats[1]:
+        raise AssertionError(f"query mesh engine stats differ: {stats}")
+    out["engine_stats"] = stats[0]
+    out["launches"] = launches
+    if any(c <= 0 for c in launches.values()):
+        raise AssertionError(f"a kernel never launched on the query mesh: "
+                             f"{launches}")
+    return out
+
+
+def _warm_up(mesh):
+    """One vertex-sharded LJ build, untimed: the process's first build
+    pays its allocator's and its collectives' warm-up, which no timed
+    step of either halo mode should."""
+    from repro_torch.core import make_graph
+    from repro_torch.core import distributed as D
+    from repro_torch.graphs.generators import table2_graph
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    g = make_graph(src, dst, n, m_cap=int(src.size), device=mesh.device)
+    D.build_vertex_sharded(g, mesh, n_cap=n, k=64, k_prime=64,
+                           max_iters=64, check="raise")
+
+
 def _sharded_rank(rank, world, store_path, out_dir):
     """One gloo rank of the 4-rank world on the one card: probe whether
-    gloo carries CUDA tensors, then every configuration's lifecycle."""
+    gloo carries CUDA tensors, then every configuration's lifecycle, then
+    the query mesh's serving stream."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import distributed as D
@@ -1569,8 +1786,12 @@ def _sharded_rank(rank, world, store_path, out_dir):
             dist.all_reduce(t)
             want = torch.tensor([2 * rank, 2 * rank + 1] * world,
                                 dtype=torch.int32)
-            if not torch.equal(y.cpu(), want) or int(t) != world:
-                err = f"gloo gave wrong results on CUDA tensors: {y}, {t}"
+            gathered = D.fan_out(mesh, lambda a, b: a + b, x[:world],
+                                 x[:world])
+            if not torch.equal(y.cpu(), want) or int(t) != world \
+                    or not torch.equal(gathered, 2 * x[:world]):
+                err = (f"gloo gave wrong results on CUDA tensors: {y}, {t}, "
+                       f"{gathered}")
         except Exception as e:          # the refusal is the result
             err = f"{type(e).__name__}: {e}"
         ok = torch.tensor([0 if err else 1])
@@ -1579,8 +1800,10 @@ def _sharded_rank(rank, world, store_path, out_dir):
         if int(ok) == 0:
             result["refused"] = err or "another rank's probe failed"
         else:
+            _warm_up(mesh)
             for name, extra in SHARDED_CONFIGS:
                 result[name] = sharded_lifecycle(mesh, extra)
+            result["query_mesh"] = query_mesh_serve(D.query_mesh())
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
     finally:
         dist.destroy_process_group()
@@ -1593,9 +1816,21 @@ def _halo_bytes(rows, d, row_bytes):
     return [d * (d - 1) * h * (row_bytes + 1) for h in rows]
 
 
+def _sparse_line(res):
+    """The sparse halo's numbers of a lifecycle: ms per step beside the
+    dense ones, both telemetry dicts and both modes' counted collectives
+    (calls and the bytes of the tensors each rank sent)."""
+    h = res.pop("halo")
+    return {"ms": res.pop("sparse_ms"), "dense_ms": res["ms"],
+            "telemetry": {m: h[m]["telemetry"] for m in h},
+            "wire": {m: h[m]["wire"] for m in h}}
+
+
 def sharded_phase(card):
-    """The vertex-sharded lifecycle on the card: a world of one over NCCL
-    in this process, then 4 gloo ranks sharing the card."""
+    """The vertex-sharded lifecycle (dense and sparse halo) on the card,
+    then the query mesh's serving stream: a world of one over NCCL in this
+    process, then 4 gloo ranks sharing the card.  Returns the kernels'
+    launches on the query mesh (the vertex-sharded path has none)."""
     import torch
     import torch.distributed as dist
     import torch.multiprocessing as tmp
@@ -1613,13 +1848,21 @@ def sharded_phase(card):
             # NCCL sets up its communicator at the first collective
             one = torch.ones(1, device=mesh.device)
             _, first_ms = _sync_time(lambda: dist.all_reduce(one))
+            _warm_up(mesh)
             world1 = {name: sharded_lifecycle(
                 mesh, extra, card if name == "bool" else None)
                 for name, extra in SHARDED_CONFIGS}
+            qm1 = query_mesh_serve(D.query_mesh())
         finally:
             dist.destroy_process_group()
+        launches = dict(qm1["launches"])
+        emit("query_mesh_world1", backend="nccl", device=str(mesh.device),
+             answers_equal=True, card=card, **qm1)
         for name, res in world1.items():
             serve = res.pop("serve")
+            emit("sharded_sparse_world1", config=name, backend="nccl",
+                 bitwise=True, rounds_equal=True, card=card,
+                 **SPARSE_HALO, **_sparse_line(res))
             emit("sharded_world1", config=name, backend="nccl",
                  device=str(mesh.device), bitwise=True,
                  first_collective_ms=first_ms, card=card, **res)
@@ -1643,6 +1886,18 @@ def sharded_phase(card):
         ranks = [json.loads((work / f"rank{r}.json").read_text())
                  for r in range(SHARDED_RANKS)]
         refused = [r["refused"] for r in ranks if "refused" in r]
+        if not refused:
+            qm = [r.pop("query_mesh") for r in ranks]
+            for k in launches:
+                launches[k] += sum(q["launches"][k] for q in qm)
+            emit("query_mesh_4rank", backend="gloo", ranks=SHARDED_RANKS,
+                 answers_equal=True,
+                 lanes_per_rank=qm[0]["lanes_per_rank"],
+                 rounds=[q["rounds"] for q in qm],
+                 delete_ms=[q["delete_ms"] for q in qm],
+                 rebuild_ms=[q["rebuild_ms"] for q in qm],
+                 engine_stats=qm[0]["engine_stats"],
+                 launches=[q["launches"] for q in qm], card=card)
         bytes_line = {name: {"world1_per_device": world1[name]
                              ["label_bytes"][0],
                              "replicated": world1[name]["label_bytes"][1]}
@@ -1654,6 +1909,23 @@ def sharded_phase(card):
             for name, extra in SHARDED_CONFIGS:
                 res = [r[name] for r in ranks]
                 serve = [r.pop("serve") for r in res]
+                sparse = [_sparse_line(r) for r in res]
+                tel = sparse[0]["telemetry"]
+                if any(sp["telemetry"] != tel for sp in sparse):
+                    raise AssertionError(f"{name}: the ranks' halo "
+                                         "telemetry differs")
+                if tel["sparse"]["halo_bytes"] >= tel["dense"]["halo_bytes"]:
+                    raise AssertionError(
+                        f"{name}: the sparse halo modeled no fewer bytes "
+                        f"than the dense one at {SHARDED_RANKS} ranks: {tel}")
+                wire = {mode: {k: sum(sp["wire"][mode][k] for sp in sparse)
+                               for k in sparse[0]["wire"][mode]}
+                        for mode in ("dense", "sparse")}
+                emit("sharded_sparse_4rank", config=name, backend="gloo",
+                     ranks=SHARDED_RANKS, bitwise=True, rounds_equal=True,
+                     **SPARSE_HALO, ms=[sp["ms"] for sp in sparse],
+                     dense_ms=[sp["dense_ms"] for sp in sparse],
+                     telemetry=tel, wire_all_ranks=wire, card=card)
                 emit("sharded_serve_4rank", config=name, backend="gloo",
                      ranks=SHARDED_RANKS, bitwise=True,
                      rounds=[s["rounds"] for s in serve],
@@ -1696,6 +1968,7 @@ def sharded_phase(card):
         emit("sharded_bytes", card=card, **bytes_line)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 def profile_round(srv, rng, n, card, phase="profile", insert=True):
@@ -1772,7 +2045,8 @@ def main():
     launches.update(dynamic_phase(dev, card))
     for name, c in il_packed_phase(dev, card).items():
         launches[name] += c
-    sharded_phase(card)
+    for name, c in sharded_phase(card).items():
+        launches[name] += c
 
     csrc = "src/repro_torch/kernels/csrc"
     meta = {

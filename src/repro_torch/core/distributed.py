@@ -30,36 +30,41 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.dbl_query.ops import verdicts_device
 from . import families as F
 from . import graph as G
 from . import labels as L
 from . import planes as PL
+from . import query as Q
 from . import select as S
 from . import update as U
 from .dbl import DBLIndex, _check_mode, _surface
 from .graph import Graph
 from .interval import rank_plane
+from .propagate import check_halo_mode
+
+
+#: the axis a query mesh splits: the lanes of a query batch
+QUERY_AXIS = "query"
 
 
 @dataclass(frozen=True)
 class VertexMesh:
-    """A 1-axis vertex mesh: this process's place in a process group."""
+    """A 1-axis mesh: this process's place in a process group.  ``axis``
+    says what the ranks split: the vertex rows of the label planes
+    (:func:`vertex_mesh`) or the lanes of a query batch, labels
+    replicated (:func:`query_mesh`)."""
     group: object
     rank: int
     size: int
     device: torch.device
+    axis: str = PL.VERTEX_AXIS
 
 
-def vertex_mesh(shards: int | None = None, *, device=None,
-                group=None) -> VertexMesh:
-    """The vertex mesh over a process group the caller (or a launcher)
-    has initialized: ``group`` (default the whole world) with ``shards``
-    ranks (``None``: all of them).  The device defaults to
-    ``cuda:<global rank % device count>`` and raises without CUDA; pass
-    ``device="cpu"`` for the CPU (gloo)."""
+def _mesh_over(name: str, shards, device, group, axis: str) -> VertexMesh:
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
-            "vertex_mesh needs an initialized process group: call "
+            f"{name} needs an initialized process group: call "
             "torch.distributed.init_process_group(backend, init_method=..., "
             "rank=..., world_size=...) in every rank first")
     group = dist.group.WORLD if group is None else group
@@ -72,7 +77,71 @@ def vertex_mesh(shards: int | None = None, *, device=None,
         resolve_device(None)                  # raises without CUDA
         device = f"cuda:{dist.get_rank() % torch.cuda.device_count()}"
     return VertexMesh(group, dist.get_rank(group), size,
-                      resolve_device(device))
+                      resolve_device(device), axis)
+
+
+def vertex_mesh(shards: int | None = None, *, device=None,
+                group=None) -> VertexMesh:
+    """The vertex mesh over a process group the caller (or a launcher)
+    has initialized: ``group`` (default the whole world) with ``shards``
+    ranks (``None``: all of them).  The device defaults to
+    ``cuda:<global rank % device count>`` and raises without CUDA; pass
+    ``device="cpu"`` for the CPU (gloo)."""
+    return _mesh_over("vertex_mesh", shards, device, group, PL.VERTEX_AXIS)
+
+
+def query_mesh(shards: int | None = None, *, device=None,
+               group=None) -> VertexMesh:
+    """The query-axis mesh: the same :class:`VertexMesh` handle over the
+    same kind of process group, with ``axis == "query"``.  Every rank
+    holds the whole replicated index; a batch's lanes are split into one
+    contiguous block a rank (:func:`distributed_label_verdicts`,
+    ``QueryEngine(mesh=...)``).  Arguments as in :func:`vertex_mesh`."""
+    return _mesh_over("query_mesh", shards, device, group, QUERY_AXIS)
+
+
+def fan_out(mesh: VertexMesh, verdicts, u: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+    """``verdicts(u_blk, v_blk)`` on this rank's contiguous block of the
+    lanes, then one all-gather into a (Q,) tensor on every rank.  The lanes
+    are padded to a multiple of the mesh size with self-queries on vertex
+    0, which are cut off again."""
+    q, d = u.shape[0], mesh.size
+    blk = -(-q // d)
+    pad = blk * d - q
+    if pad:
+        zeros = torch.zeros(pad, dtype=u.dtype, device=u.device)
+        u, v = torch.cat([u, zeros]), torch.cat([v, zeros])
+    lo = mesh.rank * blk
+    part = verdicts(u[lo:lo + blk], v[lo:lo + blk]).contiguous()
+    out = torch.empty(blk * d, dtype=part.dtype, device=part.device)
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, part, group=mesh.group)
+    return out[:q]
+
+
+def distributed_label_verdicts(idx: DBLIndex, mesh: VertexMesh, u, v
+                               ) -> torch.Tensor:
+    """Label verdicts (``DBLIndex.label_verdicts``) with the query batch
+    split over a query mesh: each rank runs the verdict kernel (its plain
+    version on the CPU) on its block of the lanes against its whole
+    replicated ``idx``, and one all-gather gives every rank the (Q,) int8
+    verdicts."""
+    if idx.layout.sharded:
+        raise ValueError("a query mesh serves a replicated index; a "
+                         "vertex-sharded one is served by "
+                         "QueryEngine(index, vertex_mesh=mesh)")
+    dev = idx.device
+    u = torch.as_tensor(np.asarray(u, np.int32)).to(dev)
+    v = torch.as_tensor(np.asarray(v, np.int32)).to(dev)
+
+    def verdicts(a, b):
+        fresh = torch.full(a.shape, Q.FRESH_CUT, dtype=torch.int32,
+                           device=dev)
+        return verdicts_device(idx.packed, a, b, fresh, 0, None, None,
+                               idx.il, out_dtype=torch.int8)
+    return fan_out(mesh, verdicts, u, v)
 
 
 def place_vertex_sharded(idx: DBLIndex, mesh: VertexMesh) -> DBLIndex:
@@ -98,26 +167,35 @@ def place_vertex_sharded(idx: DBLIndex, mesh: VertexMesh) -> DBLIndex:
                           il_in=part(idx.il_in), il_out=part(idx.il_out))
 
 
+def _halo_options(halo_mode, telemetry, halo_caps) -> dict:
+    """The halo options every fixpoint of a lifecycle call takes."""
+    check_halo_mode(halo_mode)
+    return dict(halo_mode=halo_mode, telemetry=telemetry,
+                halo_caps=halo_caps)
+
+
 def _note(rounds, *iters) -> None:
     if rounds is not None:
         rounds.extend(int(i) for i in iters)
 
 
 def _il_build_sharded(plan: PL.ShardPlan, n_cap: int, dim: int, seed: int,
-                      live: torch.Tensor, max_iters: int):
+                      live: torch.Tensor, max_iters: int, **halo):
     """Sharded twin of ``interval.build_il``: this rank's rows of the rank
     seed plane (drawn whole on the host, a function of (seed, n_cap,
     dim)), both directions through the MIN halo fixpoint from the all-ones
-    frontier.  Returns (il_in, il_out, [iters_in, iters_out])."""
+    frontier, with the ``halo`` options (``halo_mode``, ``telemetry``,
+    ``halo_caps``).  Returns (il_in, il_out, [iters_in, iters_out])."""
     mesh = plan.mesh
     n_loc = n_cap // mesh.size
     base = rank_plane(n_cap, dim, seed, "cpu")[
         mesh.rank * n_loc:(mesh.rank + 1) * n_loc].to(mesh.device)
     fr = torch.ones(n_loc, dtype=torch.bool, device=mesh.device)
     il_in, it0 = PL.halo_propagate(plan, base, fr, live, monoid="min",
-                                   max_iters=max_iters)
+                                   max_iters=max_iters, **halo)
     il_out, it1 = PL.halo_propagate(plan, base, fr, live, reverse=True,
-                                    monoid="min", max_iters=max_iters)
+                                    monoid="min", max_iters=max_iters,
+                                    **halo)
     return il_in, il_out, [it0, it1]
 
 
@@ -137,11 +215,15 @@ def build_vertex_sharded(g: Graph, mesh: VertexMesh, *, n_cap: int,
     carries the edge partition and halo routing later inserts and
     rebuilds reuse.  ``families`` adds the "il" rank planes, built through
     the MIN halo fixpoint.  ``rounds``, a list, gets each fixpoint's
-    ``iters`` appended (fwd, bwd, then il in, il out).  The sparse halo
-    (``halo_mode="sparse"``, ``hub_count``, ``telemetry``, ``halo_caps``)
-    is not ported."""
+    ``iters`` appended (fwd, bwd, then il in, il out).
+
+    ``halo_mode="sparse"`` runs every halo fixpoint through the sparse
+    exchange (``core.halo``); ``hub_count`` freezes that many top
+    cut-degree vertices on the plan for its hub lane; ``telemetry`` (a
+    ``halo.HaloTelemetry``) accumulates the modeled halo bytes and rounds
+    of every fixpoint; ``halo_caps`` overrides the sparse capacities."""
     _check_mode(check)
-    PL.check_dense_halo(halo_mode, telemetry, halo_caps, hub_count)
+    halo = _halo_options(halo_mode, telemetry, halo_caps)
     plugin_fams = F.plugins(families)
     layout = PL.vertex_layout(mesh)
     PL._check_rows(n_cap, layout)
@@ -151,19 +233,20 @@ def build_vertex_sharded(g: Graph, mesh: VertexMesh, *, n_cap: int,
     seeds = PL.PlaneStore.seeds(landmarks, sources, sinks, n_cap=n_cap,
                                 k=k, k_prime=k_prime, layout=layout)
     fr_fwd, fr_bwd = seeds.seed_frontiers()
-    plan = PL.shard_plan(g.src, g.dst, g.m, n_cap, mesh)
+    plan = PL.shard_plan(g.src, g.dst, g.m, n_cap, mesh,
+                         hub_count=hub_count)
     live = G.edge_mask(g)
     x_fwd, it0 = PL.halo_propagate(plan, seeds.fused(), fr_fwd, live,
                                    max_iters=max_iters,
-                                   plane_repr=plane_repr)
+                                   plane_repr=plane_repr, **halo)
     x_bwd, it1 = PL.halo_propagate(plan, seeds.fused(reverse=True), fr_bwd,
                                    live, reverse=True, max_iters=max_iters,
-                                   plane_repr=plane_repr)
+                                   plane_repr=plane_repr, **halo)
     iters = [it0, it1]
     il_kw = {}
     for _ in plugin_fams:
         p_in, p_out, it_f = _il_build_sharded(plan, n_cap, il_dim, il_seed,
-                                              live, max_iters)
+                                              live, max_iters, **halo)
         il_kw = dict(il_in=p_in, il_out=p_out, il_seed=int(il_seed))
         iters += it_f
     _note(rounds, *iters)
@@ -191,10 +274,11 @@ def insert_vertex_sharded(idx: DBLIndex, plan: PL.ShardPlan, new_src,
     The plan is extended (``planes.extend_plan``, O(m + Δm log Δm) host
     work, no re-sort); ``extend=False`` builds it from scratch, and a plan
     that does not cover exactly the pre-insert edge prefix is rebuilt from
-    scratch with a warning rather than routing wrong.  ``rounds`` as in
+    scratch (keeping its ``hub_count``) with a warning rather than routing
+    wrong.  ``rounds`` and the halo options as in
     :func:`build_vertex_sharded`."""
     _check_mode(check)
-    PL.check_dense_halo(halo_mode, telemetry, halo_caps)
+    halo = _halo_options(halo_mode, telemetry, halo_caps)
     mesh = plan.mesh
     dev = idx.device
     ns_np = np.asarray(new_src, np.int32).ravel()
@@ -213,19 +297,20 @@ def insert_vertex_sharded(idx: DBLIndex, plan: PL.ShardPlan, new_src,
                 "routing tables from scratch", stacklevel=2)
         plan2 = PL.shard_plan(g2.src, g2.dst, g2.m, idx.n_cap, mesh,
                               edge_granule=plan.edge_granule,
-                              halo_granule=plan.halo_granule)
+                              halo_granule=plan.halo_granule,
+                              hub_count=plan.hub_count)
     live = G.edge_mask(g2)
     store = idx.store
     seeded_f, fr_f = PL.sharded_seed_scatter(store.fused(), ns, nd,
                                              mesh=mesh)
     x_fwd, it0 = PL.halo_propagate(plan2, seeded_f, fr_f, live,
                                    max_iters=max_iters,
-                                   plane_repr=plane_repr)
+                                   plane_repr=plane_repr, **halo)
     seeded_b, fr_b = PL.sharded_seed_scatter(store.fused(reverse=True),
                                              nd, ns, mesh=mesh)
     x_bwd, it1 = PL.halo_propagate(plan2, seeded_b, fr_b, live,
                                    reverse=True, max_iters=max_iters,
-                                   plane_repr=plane_repr)
+                                   plane_repr=plane_repr, **halo)
     iters = [it0, it1]
     il_kw = {}
     if idx.il_in is not None:
@@ -235,12 +320,13 @@ def insert_vertex_sharded(idx: DBLIndex, plan: PL.ShardPlan, new_src,
         s_in, fr_i = PL.sharded_seed_scatter_min(idx.il_in, ns, nd,
                                                  mesh=mesh)
         il_in2, it2 = PL.halo_propagate(plan2, s_in, fr_i, live,
-                                        monoid="min", max_iters=max_iters)
+                                        monoid="min", max_iters=max_iters,
+                                        **halo)
         s_out, fr_o = PL.sharded_seed_scatter_min(idx.il_out, nd, ns,
                                                   mesh=mesh)
         il_out2, it3 = PL.halo_propagate(plan2, s_out, fr_o, live,
                                          reverse=True, monoid="min",
-                                         max_iters=max_iters)
+                                         max_iters=max_iters, **halo)
         il_kw = dict(il_in=il_in2, il_out=il_out2)
         iters += [it2, it3]
     _note(rounds, *iters)
@@ -271,21 +357,25 @@ def rebuild_vertex_sharded(idx: DBLIndex, plan: PL.ShardPlan | None, *,
     partial reset is the store's row/column seed reset of this rank's
     rows; the repair fixpoint relaxes the whole live edge set (relaxing
     edges into clean rows changes nothing).  A plan that misses inserts
-    catches up by ``extend_plan(dedupe=False)`` over the window.  Returns
-    (index', plan', info); ``rounds`` as in :func:`build_vertex_sharded`."""
+    catches up by ``extend_plan(dedupe=False)`` over the window; a new
+    plan keeps the old one's ``hub_count``.  Returns (index', plan',
+    info); ``rounds`` and the halo options as in
+    :func:`build_vertex_sharded`."""
     mesh = mesh or (plan.mesh if plan is not None else None)
     if mesh is None:
         raise ValueError("rebuild_vertex_sharded needs a plan or a mesh")
     if mode not in ("full", "delta", "auto"):
         raise ValueError(f"unknown rebuild mode {mode!r}")
     _check_mode(check)
-    PL.check_dense_halo(halo_mode, telemetry, halo_caps)
+    halo = _halo_options(halo_mode, telemetry, halo_caps)
     n_cap, k, kp = idx.n_cap, idx.k, idx.k_prime
     gran = {} if plan is None else dict(edge_granule=plan.edge_granule,
-                                        halo_granule=plan.halo_granule)
+                                        halo_granule=plan.halo_granule,
+                                        hub_count=plan.hub_count)
     build_kw = dict(n_cap=n_cap, k=k, k_prime=kp, selection=selection,
                     leaf_r=leaf_r, max_iters=max_iters, check=check,
-                    plane_repr=plane_repr, rounds=rounds)
+                    plane_repr=plane_repr, rounds=rounds,
+                    hub_count=gran.get("hub_count", 0), **halo)
     if idx.il_in is not None:
         build_kw.update(families=idx.families, il_dim=idx.il_dim,
                         il_seed=idx.il_seed)
@@ -333,7 +423,8 @@ def rebuild_vertex_sharded(idx: DBLIndex, plan: PL.ShardPlan | None, *,
                                      fr_bwd)):
         fr = fr | (seed.bool() & fresh[None, :]).any(1)
         x, it = PL.halo_propagate(plan, x, fr, live, reverse=rev,
-                                  max_iters=max_iters, plane_repr=plane_repr)
+                                  max_iters=max_iters, plane_repr=plane_repr,
+                                  **halo)
         iters.append(it)
         out.append(x)
     g2 = G.compact(g) if compact else g
@@ -345,7 +436,7 @@ def rebuild_vertex_sharded(idx: DBLIndex, plan: PL.ShardPlan | None, *,
     if idx.il_in is not None:
         p_in, p_out, it_f = _il_build_sharded(
             plan2, n_cap, idx.il_dim, idx.il_seed, G.edge_mask(g2),
-            max_iters)
+            max_iters, **halo)
         il_kw = dict(il_in=p_in, il_out=p_out)
         iters += it_f
     _note(rounds, *iters)

@@ -285,6 +285,15 @@ class _DirPlan(NamedTuple):
     e_start: torch.Tensor   # (E_pad,) bool — first entry of each segment
     e_tail: torch.Tensor    # (E_pad,) bool — last entry of each segment
     host: "_DirHost"        # the whole (d, ...) numpy tables
+    # the sparse halo's hub lane (None on a plan without one): the top
+    # ``hub_count`` cut vertices by cut degree, frozen when the plan is
+    # built, travel once a round on one ``all_reduce`` instead of in up to
+    # d - 1 pair buffers
+    h_hub: torch.Tensor | None = None     # (d, H) bool: h_send entry is a hub
+    hubs: torch.Tensor | None = None      # (Hub,) int64 global ids, pad n_cap
+    hub_slot: torch.Tensor | None = None  # (Hub,) int64 slot of each hub in
+    #                                       this rank's [local | halo] table;
+    #                                       pad n_loc + d*H (dropped)
 
 
 class ShardPlan(NamedTuple):
@@ -302,6 +311,7 @@ class ShardPlan(NamedTuple):
     bwd: _DirPlan
     edge_granule: int = 1024
     halo_granule: int = 64
+    hub_count: int = 0    # the hub lane's width (0: no hub lane)
 
 
 def _round_up(x: int, granule: int) -> int:
@@ -310,14 +320,43 @@ def _round_up(x: int, granule: int) -> int:
 
 class _DirHost(NamedTuple):
     """The numpy tables of one direction, bit-identical to the reference's
-    (``(d, E_pad)`` buckets, ``(d, d, H)`` halo lists; the sparse halo's
-    hub tables are not ported)."""
+    (``(d, E_pad)`` buckets, ``(d, d, H)`` halo lists, and with a hub lane
+    the ``(d, d, H)`` hub flags, the ``(d, Hub)`` receiver slots and the
+    real hub ids, sorted)."""
     e_slot: np.ndarray
     e_recv: np.ndarray
     e_gid: np.ndarray
     e_valid: np.ndarray
     h_send: np.ndarray
     h_valid: np.ndarray
+    h_hub: np.ndarray | None = None
+    hub_slot: np.ndarray | None = None
+    hubs: np.ndarray | None = None
+
+
+def _select_hubs(need: list, hub_count: int) -> np.ndarray:
+    """The top ``hub_count`` cut vertices by cut degree (the number of
+    (receiver, sender) need lists holding the vertex), degree-1 vertices
+    left out: a broadcast pays only for a row that several pair buffers
+    would carry.  Ties break on the vertex id; sorted ascending."""
+    d = len(need)
+    lists = [need[t][s] for t in range(d) for s in range(d)
+             if need[t][s].size]
+    if hub_count <= 0 or not lists:
+        return np.zeros(0, np.int64)
+    verts, cnts = np.unique(np.concatenate(lists), return_counts=True)
+    keep = cnts >= 2
+    verts, cnts = verts[keep], cnts[keep]
+    order = np.lexsort((verts, -cnts))
+    return np.sort(verts[order[:hub_count]])
+
+
+def _hub_positions(hubs_np: np.ndarray, ids: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """(index into ``hubs_np``, is-a-hub mask) of each of ``ids``."""
+    j = np.searchsorted(hubs_np, ids)
+    jc = np.minimum(j, hubs_np.size - 1)
+    return j, (j < hubs_np.size) & (hubs_np[jc] == ids)
 
 
 def _segment_flags(e_recv: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -332,8 +371,10 @@ def _segment_flags(e_recv: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _build_dir(push: np.ndarray, recv: np.ndarray, m: int, n_loc: int,
-               d: int, edge_granule: int, halo_granule: int) -> _DirHost:
-    """One direction's tables over the edge prefix ``[0, m)``."""
+               d: int, edge_granule: int, halo_granule: int,
+               hub_count: int = 0) -> _DirHost:
+    """One direction's tables over the edge prefix ``[0, m)``, with the
+    hub lane's tables when ``hub_count > 0``."""
     gids = np.arange(m, dtype=np.int64)
     owner_recv = recv[:m].astype(np.int64) // n_loc
     owner_push = push[:m].astype(np.int64) // n_loc
@@ -386,28 +427,60 @@ def _build_dir(push: np.ndarray, recv: np.ndarray, m: int, n_loc: int,
             ids = need[t][s]
             h_send[s, t, :ids.size] = ids - s * n_loc
             h_valid[s, t, :ids.size] = True
-    return _DirHost(e_slot, e_recv, e_gid, e_valid, h_send, h_valid)
+    if hub_count <= 0:
+        return _DirHost(e_slot, e_recv, e_gid, e_valid, h_send, h_valid)
+    # the hub lane, frozen here: hub j's slot in receiver t's combined
+    # table; the pad slot n_loc + d*H is one past the table, so dropped
+    hubs_np = _select_hubs(need, hub_count)
+    h_hub = np.zeros((d, d, H), bool)
+    hub_slot = np.full((d, hub_count), n_loc + d * H, np.int64)
+    if hubs_np.size:
+        for t in range(d):
+            for s in range(d):
+                ids = need[t][s]
+                if ids.size == 0:
+                    continue
+                j, ishub = _hub_positions(hubs_np, ids)
+                h_hub[s, t, :ids.size] = ishub
+                pos = np.arange(ids.size)
+                hub_slot[t, j[ishub]] = n_loc + s * H + pos[ishub]
+    return _DirHost(e_slot, e_recv, e_gid, e_valid, h_send, h_valid,
+                    h_hub, hub_slot, hubs_np)
 
 
-def _upload_dir(host: _DirHost, rank: int, device,
+def _upload_dir(host: _DirHost, rank: int, device, n_cap: int,
                 old: _DirPlan | None = None) -> _DirPlan:
-    """This rank's device rows of ``host``.  Halo tables that are the very
-    arrays of ``old.host`` keep ``old``'s device tensors."""
+    """This rank's device rows of ``host``; with a hub lane also the hub
+    ids, padded to ``Hub`` with ``n_cap`` (owned by no shard).  Halo tables
+    that are the very arrays of ``old.host`` keep ``old``'s device tensors
+    (the hub tables change only with them; the hub ids never do)."""
     def up(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a[rank])).to(
             device=device, dtype=dtype)
 
     start, tail = _segment_flags(host.e_recv)
+    hub = {}
     if old is not None and host.h_send is old.host.h_send \
             and host.h_valid is old.host.h_valid:
         h_send, h_valid = old.h_send, old.h_valid
+        hub = dict(h_hub=old.h_hub, hub_slot=old.hub_slot)
     else:
         h_send, h_valid = up(host.h_send, torch.int64), \
             up(host.h_valid, torch.bool)
+        if host.h_hub is not None:
+            hub = dict(h_hub=up(host.h_hub, torch.bool),
+                       hub_slot=up(host.hub_slot, torch.int64))
+    if host.h_hub is not None:
+        if old is not None:
+            hub["hubs"] = old.hubs
+        else:
+            ids = np.full(host.hub_slot.shape[1], n_cap, np.int64)
+            ids[:host.hubs.size] = host.hubs
+            hub["hubs"] = torch.from_numpy(ids).to(device)
     return _DirPlan(up(host.e_slot, torch.int64), up(host.e_recv, torch.int64),
                     up(host.e_gid, torch.int64), up(host.e_valid, torch.bool),
                     h_send, h_valid, up(start, torch.bool),
-                    up(tail, torch.bool), host)
+                    up(tail, torch.bool), host, **hub)
 
 
 def _host_edges(a) -> np.ndarray:
@@ -422,18 +495,22 @@ def shard_plan(src, dst, m: int, n_cap: int, mesh, *,
     ``src``/``dst`` are the graph's (m_cap,) edge arrays (numpy or torch;
     read once).  O(m log m) numpy work, paid at build time and after a
     compacting rebuild, never per query.  Every rank builds the same
-    tables and uploads its own rows to ``mesh.device``."""
-    check_dense_halo(hub_count=hub_count)
+    tables and uploads its own rows to ``mesh.device``.  ``hub_count > 0``
+    also picks each direction's top ``hub_count`` cut vertices for the
+    sparse halo's hub lane, frozen until the next plan from scratch."""
     layout = vertex_layout(mesh)
     n_loc = _check_rows(n_cap, layout)
     src, dst = _host_edges(src), _host_edges(dst)
     d, m = layout.shards, int(m)
-    fwd = _build_dir(src, dst, m, n_loc, d, edge_granule, halo_granule)
-    bwd = _build_dir(dst, src, m, n_loc, d, edge_granule, halo_granule)
+    fwd = _build_dir(src, dst, m, n_loc, d, edge_granule, halo_granule,
+                     hub_count)
+    bwd = _build_dir(dst, src, m, n_loc, d, edge_granule, halo_granule,
+                     hub_count)
     return ShardPlan(mesh, n_cap, m,
-                     _upload_dir(fwd, layout.rank, mesh.device),
-                     _upload_dir(bwd, layout.rank, mesh.device),
-                     edge_granule=edge_granule, halo_granule=halo_granule)
+                     _upload_dir(fwd, layout.rank, mesh.device, n_cap),
+                     _upload_dir(bwd, layout.rank, mesh.device, n_cap),
+                     edge_granule=edge_granule, halo_granule=halo_granule,
+                     hub_count=hub_count)
 
 
 # ------------------------------------------- incremental plan extension
@@ -478,7 +555,9 @@ def _extend_dir(host: _DirHost, push: np.ndarray, recv: np.ndarray,
     the decoded slot -> pushing-vertex map is the same.  A batch with no
     cut edge returns the very ``h_send``/``h_valid`` arrays.  Where a
     bucket's batch lands at or after its last occupied recv row, the merge
-    is skipped (the append-sorted fast path)."""
+    is skipped (the append-sorted fast path).  The hub set stays frozen:
+    a hub entering a send list gets its flag and receiver slot, and a
+    grown halo remaps the hub slots into the new stride."""
     e_slot, e_recv, e_gid = host.e_slot, host.e_recv, host.e_gid
     h_send, h_valid = host.h_send, host.h_valid
     E_old = e_recv.shape[1]
@@ -519,20 +598,42 @@ def _extend_dir(host: _DirHost, push: np.ndarray, recv: np.ndarray,
             H_needed = max(H_needed, c + fresh.size)
     grew_h = H_needed > H_old
     H_new = _round_up(H_needed, halo_granule) if grew_h else H_old
+    h_hub, hub_slot, hubs_np = host.h_hub, host.hub_slot, host.hubs
+    hh2, hub_slot2 = h_hub, hub_slot
     if grew_h:
         hs2 = np.zeros((d, d, H_new), np.int32)
         hv2 = np.zeros((d, d, H_new), bool)
         hs2[:, :, :H_old] = h_send
         hv2[:, :, :H_old] = h_valid
+        if h_hub is not None:
+            hh2 = np.zeros((d, d, H_new), bool)
+            hh2[:, :, :H_old] = h_hub
+            # the stride n_loc + s*H + pos changed: remap the hub slots and
+            # move the drop sentinel to the new table's end, as e_slot below
+            off = hub_slot - n_loc
+            hub_slot2 = np.where(
+                hub_slot >= n_loc + d * H_old, n_loc + d * H_new,
+                np.where(hub_slot >= n_loc,
+                         n_loc + (off // H_old) * H_new + off % H_old,
+                         hub_slot))
     elif new_halo:
         hs2 = h_send.copy()
         hv2 = h_valid.copy()
+        if h_hub is not None:
+            hh2, hub_slot2 = h_hub.copy(), hub_slot.copy()
     else:
         hs2, hv2 = h_send, h_valid     # zero-cut batch: the very arrays
     for (s, t), fresh in new_halo.items():
         c = int(hc[s, t])
         hs2[s, t, c:c + fresh.size] = (fresh - s * n_loc).astype(np.int32)
         hv2[s, t, c:c + fresh.size] = True
+        # fresh cut vertices of the frozen hub set get their hub flags and
+        # receiver slots as they enter the send lists
+        if hubs_np is not None and hubs_np.size and fresh.size:
+            j, ishub = _hub_positions(hubs_np, fresh)
+            pos = c + np.arange(fresh.size)
+            hh2[s, t, pos[ishub]] = True
+            hub_slot2[t, j[ishub]] = n_loc + s * H_new + pos[ishub]
 
     # ---- edge buckets: merge per receiving shard -----------------------
     counts = np.bincount(owner_recv, minlength=d)[:d]
@@ -592,7 +693,7 @@ def _extend_dir(host: _DirHost, push: np.ndarray, recv: np.ndarray,
         g2[t, dst_old] = e_gid[t, :nold]
         g2[t, dst_new] = gid_s.astype(np.int32)
         v2[t, :nold + b] = True
-    return _DirHost(s2, r2, g2, v2, hs2, hv2)
+    return _DirHost(s2, r2, g2, v2, hs2, hv2, hh2, hub_slot2, hubs_np)
 
 
 def extend_plan(plan: ShardPlan, new_src, new_dst, *,
@@ -625,25 +726,15 @@ def extend_plan(plan: ShardPlan, new_src, new_dst, *,
                       edge_granule, halo_granule)
     bwd = _extend_dir(plan.bwd.host, dst, src, gid, n_loc, d,
                       edge_granule, halo_granule)
-    dev = plan.mesh.device
-    return ShardPlan(plan.mesh, plan.n_cap, m2,
-                     _upload_dir(fwd, layout.rank, dev, plan.fwd),
-                     _upload_dir(bwd, layout.rank, dev, plan.bwd),
-                     edge_granule=edge_granule, halo_granule=halo_granule)
+    dev, n_cap = plan.mesh.device, plan.n_cap
+    return ShardPlan(plan.mesh, n_cap, m2,
+                     _upload_dir(fwd, layout.rank, dev, n_cap, plan.fwd),
+                     _upload_dir(bwd, layout.rank, dev, n_cap, plan.bwd),
+                     edge_granule=edge_granule, halo_granule=halo_granule,
+                     hub_count=plan.hub_count)
 
 
 # ------------------------------------------------- sharded collectives
-def check_dense_halo(halo_mode: str = "dense", telemetry=None,
-                     halo_caps=None, hub_count: int = 0) -> None:
-    """Refuse the sparse halo's options: only the dense exchange is
-    ported."""
-    check_halo_mode(halo_mode)
-    if halo_mode == "sparse" or telemetry is not None \
-            or halo_caps is not None or hub_count:
-        raise not_ported("the sparse halo (halo_mode='sparse', telemetry, "
-                         "halo_caps, the hub lane)", "queue 1, item 14c")
-
-
 def _exchange(mesh, send: torch.Tensor) -> torch.Tensor:
     """All-to-all of a (d, H, ...) tensor: chunk ``t`` goes to rank ``t``,
     and chunk ``s`` of the result is what rank ``s`` sent here."""
@@ -660,10 +751,10 @@ def _global_count(mesh, flags: torch.Tensor) -> int:
     return int(t.item())
 
 
-def _halo_round(mesh, dp: _DirPlan, x, fr, live, fill):
-    """One round's exchange: the combined table ``[local rows | halo]``,
-    its frontier, and the active bucket entries (frontier pusher, live,
-    not padding)."""
+def _dense_exchange(mesh, dp: _DirPlan, x, fr, fill):
+    """The dense round's exchange: every pair's whole H-slot buffer, the
+    frontier rows and ``fill`` (the monoid's identity) elsewhere.  Returns
+    the combined table ``[local rows | halo]`` and its frontier."""
     d, H = dp.h_send.shape
     sf = dp.h_valid & fr[dp.h_send]                        # (d, H)
     sr = torch.where(sf[..., None], x[dp.h_send],
@@ -672,8 +763,39 @@ def _halo_round(mesh, dp: _DirPlan, x, fr, live, fill):
     rr = _exchange(mesh, sr)
     comb = torch.cat([x, rr.reshape(d * H, x.shape[1])])
     frc = torch.cat([fr, rf.reshape(d * H).bool()])
-    active = frc[dp.e_slot] & live[dp.e_gid] & dp.e_valid
-    return comb, active
+    return comb, frc
+
+
+def _relaxer(dp: _DirPlan, live, monoid: str, packed: bool, k: int):
+    """``relax(x, comb, frc) -> (x', changed rows)``: one round's edge
+    relaxation of the local rows from a combined table and its frontier,
+    over the active bucket entries (frontier pusher, live, not padding).
+    OR is ``"amax"`` on 0/1 uint8 rows and MIN ``"amin"`` on int32 ranks,
+    both over the active entries only, which drops the padding sentinel;
+    words OR through ``bitset.segment_or_flags`` over the whole bucket
+    with the plan's segment flags."""
+    edge_ok = live[dp.e_gid] & dp.e_valid
+    if packed:
+        mask = bitset.pad_mask(k, dp.e_recv.device)
+        zero = torch.zeros((), dtype=torch.int32, device=dp.e_recv.device)
+
+        def relax(xw, comb, frc):
+            active = frc[dp.e_slot] & edge_ok
+            vals = torch.where(active[:, None], comb[dp.e_slot], zero)
+            agg = bitset.segment_or_flags(vals, dp.e_start, dp.e_tail,
+                                          dp.e_recv, xw.shape[0])
+            new = (xw | agg) & mask
+            return new, (new != xw).any(-1)
+        return relax
+    reduce = "amin" if monoid == "min" else "amax"
+
+    def relax(x, comb, frc):
+        eidx = torch.nonzero(frc[dp.e_slot] & edge_ok).squeeze(1)
+        new = x.clone()
+        new.index_reduce_(0, dp.e_recv[eidx], comb[dp.e_slot[eidx]],
+                          reduce, include_self=True)
+        return new, (new != x).any(-1)
+    return relax
 
 
 def _fixpoint(mesh, step, x, frontier, max_iters: int):
@@ -689,41 +811,12 @@ def _fixpoint(mesh, step, x, frontier, max_iters: int):
     return x, (max_iters + 1 if alive else it)
 
 
-def _halo_reduce(mesh, dp, x, frontier, live, max_iters, reduce, fill):
-    """OR (``"amax"`` on 0/1 uint8) or MIN (``"amin"`` on int32 ranks)
-    fixpoint on local rows.  Only the active entries are reduced, which
-    drops the padding sentinel with them."""
-    def step(x, fr):
-        comb, active = _halo_round(mesh, dp, x, fr, live, fill)
-        eidx = torch.nonzero(active).squeeze(1)
-        new = x.clone()
-        new.index_reduce_(0, dp.e_recv[eidx], comb[dp.e_slot[eidx]],
-                          reduce, include_self=True)
-        return new, (new != x).any(-1)
-
-    return _fixpoint(mesh, step, x, frontier, max_iters)
-
-
-def _halo_packed(mesh, dp, x, frontier, live, max_iters):
-    """Word-plane OR fixpoint: halo rows cross as int32 words (32 lanes a
-    word), and the recv-sorted bucket feeds ``bitset.segment_or_flags``
-    with the plan's segment flags, which drops the sentinel rows."""
-    k = x.shape[1]
-    n_loc = x.shape[0]
-    mask = bitset.pad_mask(k, x.device)
-    zero = torch.zeros((), dtype=torch.int32, device=x.device)
-
-    def step(xw, fr):
-        comb, active = _halo_round(mesh, dp, xw, fr, live, 0)
-        vals = torch.where(active[:, None], comb[dp.e_slot], zero)
-        agg = bitset.segment_or_flags(vals, dp.e_start, dp.e_tail,
-                                      dp.e_recv, n_loc)
-        new = (xw | agg) & mask
-        return new, (new != xw).any(-1)
-
-    out, iters = _fixpoint(mesh, step, PlaneStore.pack_rows(x), frontier,
-                           max_iters)
-    return PlaneStore.unpack_rows(out, k, x.dtype), iters
+def halo_row_bytes(k: int, monoid: str, packed: bool) -> int:
+    """Bytes of one halo row as it crosses: uint8 lanes, int32 words (32
+    lanes a word) or int32 ranks."""
+    if packed:
+        return 4 * bitset.n_words(k)
+    return 4 * k if monoid == "min" else k
 
 
 def halo_propagate(plan: ShardPlan, x: torch.Tensor, frontier: torch.Tensor,
@@ -741,23 +834,49 @@ def halo_propagate(plan: ShardPlan, x: torch.Tensor, frontier: torch.Tensor,
     ``plane_repr="packed"`` runs the OR fixpoint on int32 words (rows pack
     and unpack locally; halo rows travel as words).  ``monoid="min"``
     relaxes int32 rank planes (the "il" family) and has no packed form.
-    Every round costs two ``all_to_all_single`` (frontier flags as uint8,
-    rows) and one ``all_reduce`` of the frontier count."""
+    A dense round costs two ``all_to_all_single`` (frontier flags as
+    uint8, rows) and one ``all_reduce`` of the frontier count.
+
+    ``halo_mode="sparse"`` moves only the changed boundary rows
+    (``core.halo.sparse_halo_propagate``: compacted pair buckets, a dense
+    fallback on overflow, the plan's hub lane, local rounds with no
+    payload), bitwise equal to the dense exchange.  ``telemetry`` (a
+    ``halo.HaloTelemetry``) accumulates the modeled halo bytes and rounds
+    of either mode; ``halo_caps`` overrides the sparse bucket capacities
+    (``halo.bucket_caps``)."""
     check_plane_repr(plane_repr)
-    check_dense_halo(halo_mode, telemetry, halo_caps)
+    check_halo_mode(halo_mode)
     if monoid not in ("or", "min"):
         raise ValueError(f"unknown monoid {monoid!r}")
+    if monoid == "min" and plane_repr == "packed":
+        raise ValueError("plane_repr='packed' supports the OR monoid only")
+    if halo_mode == "sparse":
+        from . import halo
+        return halo.sparse_halo_propagate(
+            plan, x, frontier, live, reverse=reverse, max_iters=max_iters,
+            monoid=monoid, plane_repr=plane_repr, telemetry=telemetry,
+            caps=halo_caps)
     dp = plan.bwd if reverse else plan.fwd
     mesh = plan.mesh
-    if monoid == "min":
-        if plane_repr == "packed":
-            raise ValueError(
-                "plane_repr='packed' supports the OR monoid only")
-        return _halo_reduce(mesh, dp, x, frontier, live, max_iters, "amin",
-                            INT_MAX)
-    if plane_repr == "packed":
-        return _halo_packed(mesh, dp, x, frontier, live, max_iters)
-    return _halo_reduce(mesh, dp, x, frontier, live, max_iters, "amax", 0)
+    k = x.shape[1]
+    packed = plane_repr == "packed"
+    relax = _relaxer(dp, live, monoid, packed, k)
+    fill = INT_MAX if monoid == "min" else 0
+
+    def step(x, fr):
+        return relax(x, *_dense_exchange(mesh, dp, x, fr, fill))
+
+    work = PlaneStore.pack_rows(x) if packed else x
+    out, iters = _fixpoint(mesh, step, work, frontier, max_iters)
+    if telemetry is not None:
+        # every ordered pair ships its whole H-slot buffer (rows and
+        # one-byte flags) every round
+        d, H = dp.h_send.shape
+        telemetry.add_dense(iters, d * (d - 1) * H
+                            * (halo_row_bytes(k, monoid, packed) + 1),
+                            max_iters)
+    return (PlaneStore.unpack_rows(out, k, x.dtype) if packed else out), \
+        iters
 
 
 def _owned_rows(x: torch.Tensor, ids: torch.Tensor, lo: int) -> torch.Tensor:

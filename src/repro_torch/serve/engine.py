@@ -37,6 +37,16 @@ pruned BFS.  The engine keeps that pipeline on the device:
   fixpoints on int32 words and ``frontier_dtype="packed"`` the residue BFS
   on words of 32 query lanes, all bitwise equal to the defaults.
 
+**Query-axis serving** (``mesh=``, a ``distributed.query_mesh``; SPMD
+over ``torch.distributed``, every rank holding the whole replicated index
+and making the same calls): the label phase splits each batch's lanes
+into one contiguous block a rank, runs the verdict kernel (grid or
+streamed, as the replicated engine would) on its block and all-gathers
+the (Q,) verdicts (``distributed.fan_out``); the residue, inserts,
+deletes and rebuilds run replicated on every rank, with the admit kernels
+under ``bfs_kernel=True``.  Answers and stats equal the replicated
+engine's.
+
 **Vertex-sharded serving** (``vertex_mesh=``, SPMD over
 ``torch.distributed``, one process a shard, every rank making the same
 calls): the bound index is row-sharded (a replicated index is placed, a
@@ -49,8 +59,12 @@ reference, and ``bfs_kernel=True``, ``backend="cuda"`` and ``streaming``
 are refused (the engine's backend is ``"torch"``).  Inserts
 extend the plan, deletes keep the layout, rebuilds hand their plan to the
 re-bind.  Answers and stats are bitwise equal to the replicated engine's.
+``halo_mode="sparse"`` runs its insert and rebuild fixpoints through the
+sparse halo (``core.halo``), ``hub_count`` gives its plans a hub lane and
+``halo_caps`` overrides the sparse capacities; ``halo_stats()`` reads the
+modeled halo bytes and rounds (zero on the other layouts).
 
-The query-axis mesh and the AOT cache raise ``NotImplementedError``.
+The AOT cache raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -66,10 +80,11 @@ import torch.distributed as dist
 
 from repro_torch.core import distributed as D
 from repro_torch.core import graph as G
+from repro_torch.core import halo as HL
 from repro_torch.core import planes as PL
 from repro_torch.core import query as Q
 from repro_torch.core import update as U
-from repro_torch.core.propagate import check_plane_repr
+from repro_torch.core.propagate import check_halo_mode, check_plane_repr
 from repro_torch.core.dbl import (DBLIndex, LabelSaturationWarning,
                                   _saturation_message, not_ported)
 from repro_torch.device import resolve_device
@@ -122,6 +137,12 @@ class EngineStats:
     policy_flushes: int = 0   # flushes initiated by the adaptive policy
     stale_lanes: int = 0      # residue lanes resolved across an epoch gap
     saturation_events: int = 0  # inserts whose label fixpoint hit max_iters
+    #: the vertex-sharded halo's modeled wire bytes, rounds and all-quiet
+    #: (pair, round) slots, mirrored from the engine's telemetry by
+    #: ``QueryEngine.halo_stats()``; zero on the other layouts
+    halo_bytes: int = 0
+    halo_rounds: int = 0
+    quiet_pair_rounds: int = 0
     #: per-family attribution over every resolved lane: "dl" label
     #: positives (incl. self-queries), "bl"/"il" negatives charged to BL /
     #: interval containment, "thm" the theorem-1/2 negatives, "bfs" the
@@ -140,6 +161,9 @@ class EngineStats:
                 "policy_flushes": self.policy_flushes,
                 "stale_lanes": self.stale_lanes,
                 "saturation_events": self.saturation_events,
+                "halo_bytes": self.halo_bytes,
+                "halo_rounds": self.halo_rounds,
+                "quiet_pair_rounds": self.quiet_pair_rounds,
                 "prune_hits": dict(self.prune_hits)}
 
 
@@ -199,7 +223,8 @@ class QueryEngine:
                  streaming: bool = False, donate: str | bool = "auto",
                  consistency: str = "as-of-submit",
                  frontier_dtype: str = "int8", out_dtype: str = "int8",
-                 plane_repr: str = "bool",
+                 plane_repr: str = "bool", halo_mode: str = "dense",
+                 hub_count: int = 0, halo_caps: tuple | None = None,
                  flush_policy: str | None = None,
                  flush_deadline_ms: float = 25.0,
                  flush_watermark: int = 256, device=None):
@@ -210,8 +235,14 @@ class QueryEngine:
                 "mesh (query-axis fan-out, labels replicated) and "
                 "vertex_mesh (vertex-sharded labels) are mutually "
                 "exclusive engine layouts")
-        if mesh is not None:
-            raise not_ported("the query-axis mesh", "queue 1, item 14d")
+        if mesh is not None and not (isinstance(mesh, D.VertexMesh)
+                                     and mesh.axis == D.QUERY_AXIS):
+            raise TypeError(
+                "mesh= takes a query mesh, "
+                "repro_torch.core.distributed.query_mesh(), not "
+                f"{type(mesh).__name__}"
+                + (" over the vertex axis (pass it as vertex_mesh=)"
+                   if isinstance(mesh, D.VertexMesh) else ""))
         if frontier_dtype not in Q.FRONTIER_DTYPES:
             raise ValueError(f"unknown frontier dtype {frontier_dtype!r}; "
                              f"expected one of {list(Q.FRONTIER_DTYPES)}")
@@ -233,6 +264,13 @@ class QueryEngine:
                 "so bfs_kernel=True and backend="
                 f"{backend!r} would never launch (use backend='auto')")
         check_plane_repr(plane_repr)
+        check_halo_mode(halo_mode)
+        if hub_count < 0:
+            raise ValueError("hub_count must be non-negative")
+        if halo_caps is not None and (
+                not halo_caps or any(int(c) <= 0 for c in halo_caps)):
+            raise ValueError("halo_caps must be a non-empty tuple of "
+                             "positive bucket capacities (or None = auto)")
         if out_dtype not in ("int8", "int32"):
             raise ValueError(f"unknown verdict out dtype {out_dtype!r}; "
                              "expected 'int8' or 'int32'")
@@ -242,11 +280,14 @@ class QueryEngine:
         if flush_deadline_ms <= 0 or flush_watermark <= 0:
             raise ValueError("flush_deadline_ms and flush_watermark must "
                              "be positive")
+        self.mesh = mesh
         self.vertex_mesh = vertex_mesh
         self.layout = "vertex_sharded" if vertex_mesh is not None \
             else "replicated"
         if vertex_mesh is not None:
             self.device = vertex_mesh.device
+        elif mesh is not None and index is None:
+            self.device = mesh.device
         elif index is not None:
             self.device = index.device
         else:
@@ -270,6 +311,15 @@ class QueryEngine:
         self.plane_repr = plane_repr
         self.out_dtype = out_dtype
         self._out_torch = torch.int8 if out_dtype == "int8" else torch.int32
+        # the vertex-sharded fixpoints' halo exchange (inert on the other
+        # layouts): "sparse" runs the insert and rebuild fixpoints through
+        # core.halo, hub_count gives the plans a hub lane, halo_caps
+        # overrides the sparse capacities (None: halo.bucket_caps(H))
+        self.halo_mode = halo_mode
+        self.hub_count = int(hub_count)
+        self.halo_caps = None if halo_caps is None \
+            else tuple(int(c) for c in halo_caps)
+        self._halo_telemetry = HL.HaloTelemetry()
         self.flush_policy = flush_policy
         self.flush_deadline_ms = float(flush_deadline_ms)
         self.flush_watermark = int(flush_watermark)
@@ -324,7 +374,8 @@ class QueryEngine:
             else:
                 g = idx.graph
                 self._plan = PL.shard_plan(g.src, g.dst, g.m, idx.n_cap,
-                                           self.vertex_mesh)
+                                           self.vertex_mesh,
+                                           hub_count=self.hub_count)
         self._index = idx
         if idx is not None:
             if idx.device != self.device:
@@ -420,11 +471,19 @@ class QueryEngine:
         order at slots [0, nu), known lanes fill the tail, and endpoints
         are scattered straight to their slots.  A vertex-sharded engine
         reads the row blocks rebuilt by one ``all_reduce`` (two with
-        ``il``)."""
+        ``il``); a query-mesh engine runs its block of the lanes and
+        all-gathers the verdicts once."""
         if self.vertex_mesh is not None:
             rows, il_rows = self._sharded_rows(p, il, u, v)
             verd = Q.cut_verdicts_rows(rows, u, v, 1, 0, not d_stale,
                                        il_rows=il_rows)
+        elif self.mesh is not None:
+            def block(a, b):
+                fresh = torch.full(a.shape, Q.FRESH_CUT, dtype=torch.int32,
+                                   device=a.device)
+                return self._verdicts(p, a, b, fresh, 0, d_stale, il)
+            verd = D.fan_out(self.mesh, block, u, v)
+            rows, il_rows = Q.gather_rows(p, u, v), Q.gather_il_rows(il, u, v)
         else:
             fresh = torch.full(u.shape, Q.FRESH_CUT, dtype=torch.int32,
                                device=u.device)
@@ -575,7 +634,7 @@ class QueryEngine:
 
     def flush_due(self) -> bool:
         """Whether the adaptive policy wants the pipeline resolved now.
-        On a vertex-sharded engine every rank must flush together, and the
+        On an engine over a mesh every rank must flush together, and the
         deadline reads each rank's own clock: the ranks agree by one
         ``all_reduce(MAX)`` of the flag (the watermark counts pooled
         residue lanes, equal on every rank already)."""
@@ -591,13 +650,13 @@ class QueryEngine:
         return sum(p.nu for p in pending) >= self.flush_watermark
 
     def _agreed(self, flag: bool) -> bool:
-        """``flag`` on any rank of a vertex-sharded engine; ``flag`` on a
-        replicated one."""
-        if self.vertex_mesh is None:
+        """``flag`` on any rank of an engine over a mesh (either axis);
+        ``flag`` on a replicated one."""
+        mesh = self.vertex_mesh or self.mesh
+        if mesh is None:
             return flag
         t = torch.tensor([int(flag)], device=self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX,
-                        group=self.vertex_mesh.group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
         return bool(t.item())
 
     def maybe_flush(self) -> bool:
@@ -744,7 +803,9 @@ class QueryEngine:
             # sharded Alg 3; the plan is extended to the appended edges
             idx2, self._plan, sat = D.insert_vertex_sharded(
                 self._index, self._plan, ns, nd, max_iters=self.max_iters,
-                check="defer", plane_repr=self.plane_repr)
+                check="defer", plane_repr=self.plane_repr,
+                halo_mode=self.halo_mode, halo_caps=self.halo_caps,
+                telemetry=self._halo_telemetry)
             self._index = replace(idx2, epoch=self.epoch + 1)
         else:
             self._index, sat = self.insert_impl(
@@ -788,6 +849,9 @@ class QueryEngine:
         build_kw.setdefault("max_iters", self.max_iters)
         build_kw.setdefault("plane_repr", self.plane_repr)
         if self.vertex_mesh is not None:
+            build_kw.setdefault("halo_mode", self.halo_mode)
+            build_kw.setdefault("halo_caps", self.halo_caps)
+            build_kw.setdefault("telemetry", self._halo_telemetry)
             new_idx, plan, info = D.rebuild_vertex_sharded(
                 self._index, self._plan, mesh=self.vertex_mesh, **build_kw)
             self._plan_override = plan   # the setter adopts it
@@ -799,6 +863,17 @@ class QueryEngine:
             self.stats.delta_rebuilds += 1
         self.last_rebuild_info = info
         return new_idx
+
+    def halo_stats(self) -> dict:
+        """The halo telemetry's counts (modeled wire bytes, rounds by
+        regime, quiet and non-quiet pair rounds, fixpoints), with the
+        headline three mirrored into ``stats``; all zero unless the engine
+        is vertex-sharded."""
+        d = self._halo_telemetry.as_dict()
+        self.stats.halo_bytes = d["halo_bytes"]
+        self.stats.halo_rounds = d["halo_rounds"]
+        self.stats.quiet_pair_rounds = d["quiet_pair_rounds"]
+        return d
 
     def aot_warmup(self, index, cache_dir, **kw):
         raise not_ported("the AOT executable cache", "queue 1, item 15")

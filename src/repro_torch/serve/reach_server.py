@@ -16,6 +16,9 @@ query boundary.
 
 ``vertex_mesh=`` serves a vertex-sharded index (``QueryEngine``'s
 ``vertex_mesh``): one process a shard, every rank making the same calls.
+``mesh=`` (a ``distributed.query_mesh``) serves a replicated index with
+each batch's label phase split over the ranks, again every rank making
+the same calls.
 
     python -m repro_torch.serve.reach_server [--device cuda|cpu] ...
     torchrun --nproc_per_node N -m repro_torch.serve.reach_server \
@@ -82,7 +85,7 @@ class ReachabilityServer:
 
     def __init__(self, index: DBLIndex | None, *, bfs_chunk: int = 256,
                  max_iters: int = 256, backend: str = "auto",
-                 vertex_mesh=None,
+                 mesh=None, vertex_mesh=None,
                  engine: QueryEngine | None = None,
                  consistency: str = "as-of-submit",
                  rebuild_dead_ratio: float | None = 0.25,
@@ -102,7 +105,7 @@ class ReachabilityServer:
         else:
             self.engine = QueryEngine(
                 index, bfs_chunk=bfs_chunk, max_iters=max_iters,
-                backend=backend, vertex_mesh=vertex_mesh,
+                backend=backend, mesh=mesh, vertex_mesh=vertex_mesh,
                 consistency=consistency,
                 flush_policy=flush_policy,
                 flush_deadline_ms=flush_deadline_ms,
@@ -225,6 +228,9 @@ class ReachabilityServer:
             self.rebuild()
 
     def engine_stats(self) -> dict:
+        """The engine's counters and configuration, with the halo
+        telemetry (all zero unless vertex-sharded) under ``halo`` and its
+        headline three at the top level, read fresh."""
         d = self.engine.stats.as_dict()
         d["backend"] = self.engine.backend
         d["device"] = str(self.engine.device)
@@ -236,6 +242,11 @@ class ReachabilityServer:
         d["last_rebuild"] = self.engine.last_rebuild_info
         d["layout"] = self.engine.layout
         d["flush_policy"] = self.engine.flush_policy
+        halo = self.engine.halo_stats()
+        d["halo"] = {**halo, "mode": self.engine.halo_mode,
+                     "hub_count": self.engine.hub_count}
+        d.update({k: halo[k] for k in
+                  ("halo_bytes", "halo_rounds", "quiet_pair_rounds")})
         return d
 
 

@@ -13,13 +13,17 @@ over gloo in ``test_torch_sharded_planes.py``), of the degenerate plans of
 the empty edge set, ``H == halo_granule``, the pad sentinel), and of the
 kept extents.  The reference's check that in-granule extensions compile
 nothing has no analogue: the port has no jit cache."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.core import planes as JPL
 from repro.core import propagate as JP
 from repro_torch.core import distributed as TD
+from repro_torch.core import halo as TH
 from repro_torch.core import planes as TPL
 from repro_torch.core import propagate as TP
 from repro_torch.graphs.generators import power_law
@@ -33,6 +37,18 @@ def _mesh(rank=0):
     return TD.VertexMesh(None, rank, D, torch.device("cpu"))
 
 
+@contextlib.contextmanager
+def _world_of_one():
+    """The vertex mesh of a one-rank gloo world in this process, taken
+    down again on the way out."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield TD.vertex_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def assert_host_equal(port, ref_host, what):
     """Every table of a ``_DirHost``, values and dtypes, bit for bit."""
     for f in HOST:
@@ -41,8 +57,8 @@ def assert_host_equal(port, ref_host, what):
         np.testing.assert_array_equal(a, b, err_msg=f"{what}: {f}")
 
 
-def ref_build(push, recv, m, n_loc, eg, hg):
-    return JPL._build_dir(push, recv, m, n_loc, D, eg, hg)
+def ref_build(push, recv, m, n_loc, eg, hg, hub_count=0):
+    return JPL._build_dir(push, recv, m, n_loc, D, eg, hg, hub_count)
 
 
 def ref_extend(dp, push, recv, gid, n_loc, eg, hg):
@@ -315,16 +331,36 @@ def test_layout_and_options_refused_like_the_reference():
         JP.check_halo_mode("nope")
     assert str(got.value) == str(want.value)
     src, dst = power_law(64, 200, seed=1)
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        TPL.shard_plan(src, dst, 200, 64, _mesh(0), hub_count=4)
-    plan = TPL.shard_plan(src, dst, 200, 64, _mesh(0))
-    x = torch.zeros((16, 8), dtype=torch.uint8)
-    fr = torch.zeros(16, dtype=torch.bool)
-    live = torch.ones(200, dtype=torch.bool)
-    for kw in (dict(halo_mode="sparse"), dict(telemetry=object()),
-               dict(halo_caps=(8,))):
-        with pytest.raises(NotImplementedError, match="item 14c"):
-            TPL.halo_propagate(plan, x, fr, live, **kw)
+    # the hub lane's plan tables equal the reference's; the sparse halo's
+    # options run (a world of one gloo rank: the fixpoint's collectives
+    # need a group) and give the dense fixpoint's rows and rounds
+    hplan = TPL.shard_plan(src, dst, 200, 64, _mesh(0), hub_count=4)
+    assert hplan.hub_count == 4
+    for name, (push, recv) in (("fwd", (src, dst)), ("bwd", (dst, src))):
+        want = ref_build(push, recv, 200, 16, 1024, 64, 4).host
+        assert_host_equal(getattr(hplan, name).host, want, name)
+        for f in ("h_hub", "hub_slot", "hubs"):
+            np.testing.assert_array_equal(
+                getattr(getattr(hplan, name).host, f), getattr(want, f))
+    with _world_of_one() as one:
+        plan = TPL.shard_plan(src, dst, 200, 64, one)
+        x = torch.zeros((64, 8), dtype=torch.uint8)
+        x[torch.arange(8), torch.arange(8)] = 1
+        fr = x.any(1)
+        live = torch.ones(200, dtype=torch.bool)
+        want, it = TPL.halo_propagate(plan, x, fr, live, max_iters=32)
+        tel = TH.HaloTelemetry()
+        for kw in (dict(halo_mode="sparse"), dict(telemetry=tel),
+                   dict(halo_caps=(8,)),
+                   dict(halo_mode="sparse", telemetry=tel, halo_caps=(8,))):
+            got, it2 = TPL.halo_propagate(plan, x, fr, live, max_iters=32,
+                                          **kw)
+            assert torch.equal(got, want) and it2 == it, kw
+        # one rank has no pairs: dense bytes are zero, sparse rounds local
+        t = tel.as_dict()
+        assert it > 0 and t["fixpoints"] == 2 and t["halo_rounds"] == 2 * it
+        assert t["local_rounds"] == it and t["dense_rounds"] == it
+        assert t["halo_bytes"] == it * 4
     with pytest.raises(ValueError, match="OR monoid only"):
         TPL.halo_propagate(plan, x.int(), fr, live, monoid="min",
                            plane_repr="packed")

@@ -665,12 +665,19 @@ def test_cli_vertex_shards_matches_replicated(world):
 
     def counters(d):
         """Everything but the host clocks (``wall_s``, the ``*_s``
-        times) and the device name."""
+        times), the device name and the halo telemetry, which only the
+        sharded engine's fixpoints feed."""
         d = {k: x for k, x in d.items() if not k.endswith("_s")}
         d["engine"] = {k: x for k, x in d["engine"].items()
-                       if k != "device"}
+                       if k not in ("device", "halo", "halo_bytes",
+                                    "halo_rounds", "quiet_pair_rounds")}
         return d
     assert counters(got) == counters(want)
+    halo = got["engine"]["halo"]
+    assert halo["mode"] == "dense" and halo["halo_rounds"] > 0
+    assert got["engine"]["halo_rounds"] == halo["halo_rounds"]
+    assert want["engine"]["halo"]["halo_rounds"] == 0
+    assert want["engine"]["halo_bytes"] == 0
     assert "4 ranks, not 2" in str(ranks[0]["cli|cli|refused"])
 
 
@@ -712,8 +719,13 @@ def test_sharded_engine_backend_is_torch(backend, device):
 
 def test_sharded_engine_binding():
     idx = _small_index()
-    # the query-axis mesh is still a later slice
-    with pytest.raises(NotImplementedError, match="item 14d"):
+    # a query mesh serves the replicated index as it is; a mesh of another
+    # kind is refused by its type
+    qmesh = TD.VertexMesh(None, 0, WORLD, torch.device("cpu"),
+                          TD.QUERY_AXIS)
+    qeng = TEngine(idx, mesh=qmesh, bfs_chunk=16)
+    assert qeng.index is idx and qeng.layout == "replicated"
+    with pytest.raises(TypeError, match="query_mesh"):
         TEngine(idx, mesh=object())
     eng = TEngine(idx, vertex_mesh=_fake_mesh(1), bfs_chunk=16)
     assert eng.layout == "vertex_sharded" and not eng.donate

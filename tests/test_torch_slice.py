@@ -332,11 +332,11 @@ def test_engine_flush_policies():
                                                 batches[0][1]])
     with pytest.raises(ValueError):
         TEngine(tidx, flush_policy="sometimes")
-    # packed planes and frontiers construct; the query-axis mesh is a
-    # later slice and names its queue entry
+    # packed planes and frontiers construct; mesh= takes a query mesh and
+    # refuses anything else by its type
     for kw in (dict(plane_repr="packed"), dict(frontier_dtype="packed")):
         TEngine(tidx, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="query_mesh"):
         TEngine(tidx, mesh=object())
     with pytest.raises(ValueError):
         TEngine(tidx, plane_repr="words")
