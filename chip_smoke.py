@@ -105,7 +105,25 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    no other collective.  The kernels' launches on the mesh server's
    calls add to the grid kernels' counts.  Lines ``query_mesh_world1``
    and ``query_mesh_4rank``.
-9. the ``kernels`` summary line, then the ``ok`` line last.
+9. baselines: the paper's baselines beside DBL on the LJ preset at full
+   size.  A ``DBLIndex`` (k = k' = 64, ``max_iters=64``) served by a
+   ``ReachabilityServer`` over ``QueryEngine(bfs_chunk=64, max_iters=64,
+   bfs_kernel=True)`` and an ``IPIndex`` (k = 8) on the same graph; two
+   rounds of 2 048 queries answered by the server, by B-BFS
+   (``bbfs.query``, chunk 64, ``max_iters=64``, on the server's graph)
+   and by ``IPIndex.query``, all equal and equal to a host BFS on every
+   residue lane and 64 random lanes, then 100 inserts into the server
+   and the IP index.  ``dag_stats`` and ``scc_condense_numpy`` on the
+   host, and ``scc_fwbw_round`` on the card with every vertex
+   unclassified, whose mask must equal Kosaraju's SCC of vertex 0.  The
+   reachability-filtered sampler (32 seeds, fanouts 15 and 10, the 4
+   vertices of highest in-degree as targets) through the DBL index and,
+   from the same seed, through a host BFS: equal subgraphs.  Both example
+   twins run as subprocesses on the card at their default arguments and
+   must end in ``OK``.  One ``baselines`` line: the checks, DBL's build
+   beside IP-lite's, each round's query and insert times, the SCC times
+   and the sampler's.  The grid kernels' launches add to their counts.
+10. the ``kernels`` summary line, then the ``ok`` line last.
 """
 import json
 import re
@@ -167,6 +185,19 @@ SHARDED_TIMEOUT_S = 600
 #: the sparse halo's setting beside each sharded lifecycle: the reference
 #: bench's (``benchmarks/bench_dbl_perf.py:614``)
 SPARSE_HALO = dict(halo_mode="sparse", hub_count=8)
+#: the baselines phase: queries and rounds, IP-lite's hashes, the
+#: sampler's seed vertices, fanouts and targets, and the example twins
+#: (each run at its default arguments on the phase's device)
+BASE_QUERIES = 2_048
+BASE_ROUNDS = 2
+IP_K = 8
+SAMPLE_SEEDS = 32
+FANOUTS = (15, 10)
+SAMPLE_TARGETS = 4
+EXAMPLES = {"quickstart_torch": ("examples/quickstart_torch.py",),
+            "dynamic_reachability_torch": (
+                "examples/dynamic_reachability_torch.py",)}
+EXAMPLE_TIMEOUT_S = 300
 
 
 def emit(phase, **kw):
@@ -1971,6 +2002,193 @@ def sharded_phase(card):
     return launches
 
 
+class _HostReach:
+    """``query(u, v)`` answered by a host BFS over a fixed edge list (each
+    distinct v's ancestors): the reachability-filtered sampler's index
+    with no labels in it."""
+
+    def __init__(self, n, src, dst):
+        self.n, self.src, self.dst = n, src, dst
+
+    def query(self, u, v):
+        out = np.zeros(np.asarray(u).size, bool)
+        for t, anc in host_reach(self.n, self.dst, self.src,
+                                 np.unique(v)).items():
+            sel = v == t
+            out[sel] = anc[u[sel]]
+        return out
+
+
+def _run_examples(dev):
+    """Both example twins at once as subprocesses on ``dev``; each must
+    exit 0 with ``OK`` as the last word.  {name: result}."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, *args, "--device", dev.type], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in EXAMPLES.items()}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            left = EXAMPLE_TIMEOUT_S - (time.perf_counter() - t)
+            stdout, stderr = proc.communicate(timeout=max(left, 1))
+            lines = stdout.strip().splitlines()
+            if proc.returncode != 0 or not lines or \
+                    not lines[-1].endswith("OK"):
+                raise AssertionError(
+                    f"{name} failed (rc {proc.returncode}): "
+                    f"{stdout[-1000:]} {stderr[-2000:]}")
+            out[name] = dict(rc=0, wall_s=time.perf_counter() - t,
+                             last_lines=lines[-2:])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+    return out
+
+
+def baselines_phase(dev, card):
+    """The paper's baselines beside DBL on the LJ preset at full size:
+    a DBL server, B-BFS and IP-lite answer the same queries (equal to each
+    other and to a host BFS), both indexes take the same inserts; the
+    DAG-maintenance proxy (host Kosaraju and one FW-BW round on the card,
+    which must agree); the reachability-filtered sampler through the DBL
+    index and through a host BFS (equal subgraphs); and both example twins.
+    Returns the grid kernels' launches in this phase."""
+    import torch
+    from repro_torch.baselines import bbfs
+    from repro_torch.baselines.dag_maintain import (dag_stats,
+                                                    scc_condense_numpy,
+                                                    scc_fwbw_round)
+    from repro_torch.baselines.ip_lite import IPIndex, ip_verdicts
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.graphs.generators import table2_graph
+    from repro_torch.graphs.sampler import CSR, reachability_filtered_sample
+    from repro_torch.kernels.bfs_prune.bfs_prune import bfs_admit_plane
+    from repro_torch.kernels.dbl_query.dbl_query import dbl_query_verdicts
+    from repro_torch.serve.engine import QueryEngine
+    from repro_torch.serve.reach_server import ReachabilityServer
+
+    t_phase = time.perf_counter()
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    m = int(src.size)
+    rng = np.random.default_rng(3)
+    dbl_query_verdicts.launches = 0
+    bfs_admit_plane.launches = 0
+    g = make_graph(src, dst, n, m_cap=m + BASE_ROUNDS * INSERTS, device=dev)
+    idx, dbl_build_ms = _sync_time(lambda: DBLIndex.build(
+        g, n_cap=n, k=64, k_prime=64, max_iters=64, check="raise",
+        device=dev))
+    ip, ip_build_ms = _sync_time(lambda: IPIndex.build(
+        g, n_cap=n, k=IP_K, max_iters=64))
+    srv = ReachabilityServer(index=None, engine=QueryEngine(
+        idx, bfs_chunk=BFS_CHUNK, max_iters=64, bfs_kernel=True))
+    rounds = []
+    checked = 0
+    for r in range(BASE_ROUNDS):
+        u = rng.integers(0, n, BASE_QUERIES).astype(np.int32)
+        v = rng.integers(0, n, BASE_QUERIES).astype(np.int32)
+        ns = rng.integers(0, n, INSERTS).astype(np.int32)
+        nd = rng.integers(0, n, INSERTS).astype(np.int32)
+        snap = srv.index
+        es, ed = live_edges(snap.graph)
+        residue = _residue_lanes(snap, u, v)
+        dbl, dbl_ms = _sync_time(lambda: srv.query(u, v))
+        bb, bbfs_ms = _sync_time(lambda: bbfs.query(
+            srv.index.graph, u, v, n_cap=n, chunk=BFS_CHUNK, max_iters=64))
+        ipa, ip_ms = _sync_time(lambda: ip.query(u, v, chunk=BFS_CHUNK))
+        for name, ans in (("B-BFS", bb), ("IP-lite", ipa)):
+            if not np.array_equal(ans, dbl):
+                raise AssertionError(
+                    f"baselines round {r}: {name} differs from the DBL "
+                    f"server on {int((ans != dbl).sum())} lanes")
+        lanes = np.union1d(residue, rng.choice(BASE_QUERIES, RANDOM_CHECKS,
+                                               replace=False))
+        reach = host_reach(n, es, ed, np.unique(u[lanes]))
+        want = np.array([reach[int(u[i])][v[i]] for i in lanes])
+        bad = int((dbl[lanes] != want).sum())
+        if bad:
+            raise AssertionError(f"baselines round {r}: {bad} of "
+                                 f"{lanes.size} checked answers differ from "
+                                 "the host BFS")
+        checked += lanes.size
+        ip_unknown = int((ip_verdicts(ip, torch.from_numpy(u).to(dev),
+                                      torch.from_numpy(v).to(dev)) == -1)
+                         .sum())
+        _, dbl_insert_ms = _sync_time(lambda: srv.insert(ns, nd))
+        ip, ip_insert_ms = _sync_time(lambda: ip.insert_edges(
+            ns, nd, max_iters=64))
+        rounds.append(dict(
+            round=r, query_ms={"dbl_server": dbl_ms, "bbfs": bbfs_ms,
+                               "ip_lite": ip_ms},
+            insert_ms={"dbl": dbl_insert_ms, "ip_lite": ip_insert_ms},
+            reachable=int(dbl.sum()), dbl_residue_lanes=int(residue.size),
+            ip_unknown_lanes=ip_unknown))
+
+    t = time.perf_counter()
+    dag = dag_stats(n, src, dst)
+    dag_stats_s = time.perf_counter() - t
+    t = time.perf_counter()
+    comp, _, _ = scc_condense_numpy(n, src, dst)
+    condense_s = time.perf_counter() - t
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    (scc, _, _), fwbw_ms = _sync_time(lambda: scc_fwbw_round(
+        g, every, n_cap=n, max_iters=n))
+    scc = scc.cpu().numpy()
+    if not np.array_equal(scc, comp == comp[0]):
+        raise AssertionError("scc_fwbw_round's pivot SCC differs from "
+                             "Kosaraju's")
+
+    ls, ld = live_edges(srv.index.graph)
+    csr = CSR.from_edges(n, ls, ld)
+    targets = np.argsort(-np.bincount(ld, minlength=n))[:SAMPLE_TARGETS] \
+        .astype(np.int32)
+    seeds = np.random.default_rng(4).choice(n, SAMPLE_SEEDS, replace=False)
+    sub, sample_ms = _sync_time(lambda: reachability_filtered_sample(
+        csr, seeds, FANOUTS, srv.index, targets,
+        rng=np.random.default_rng(5)))
+    t = time.perf_counter()
+    host_sub = reachability_filtered_sample(
+        csr, seeds, FANOUTS, _HostReach(n, ls, ld), targets,
+        rng=np.random.default_rng(5))
+    host_sample_ms = (time.perf_counter() - t) * 1e3
+    if not (np.array_equal(sub.nodes, host_sub.nodes) and all(
+            np.array_equal(getattr(a, f), getattr(b, f))
+            for a, b in zip(sub.blocks, host_sub.blocks)
+            for f in ("src", "dst", "edge_valid"))):
+        raise AssertionError("the DBL-filtered sample differs from the "
+                             "host-BFS-filtered one")
+    launches = {"verdicts_kernel": dbl_query_verdicts.launches,
+                "admit_kernel": bfs_admit_plane.launches}
+    if launches["verdicts_kernel"] <= 0:
+        raise AssertionError("the DBL server launched no verdicts kernel")
+
+    examples = _run_examples(dev)
+    emit("baselines", card=card, n=n, m=m, k=64, k_prime=64, ip_k=IP_K,
+         queries=BASE_QUERIES, inserts=INSERTS,
+         checks=dict(dbl_bbfs_ip_equal=True, host_bfs_lanes=checked,
+                     mismatches=0, scc_mask_equals_kosaraju=True,
+                     sampler_equals_host_bfs=True,
+                     examples_ok=sorted(examples)),
+         build_ms={"dbl": dbl_build_ms, "ip_lite": ip_build_ms},
+         rounds=rounds, dag_stats=dag, dag_stats_s=dag_stats_s,
+         scc_condense_numpy_s=condense_s, scc_fwbw_round_ms=fwbw_ms,
+         pivot_scc_size=int(scc.sum()),
+         sampler=dict(seeds=SAMPLE_SEEDS, fanouts=FANOUTS,
+                      targets=targets.tolist(), nodes=int(sub.nodes.size),
+                      sampled_edges=sum(int(b.edge_valid.size)
+                                        for b in sub.blocks),
+                      kept_edges=sum(int(b.edge_valid.sum())
+                                     for b in sub.blocks),
+                      dbl_ms=sample_ms, host_bfs_ms=host_sample_ms),
+         examples=examples, launches=launches,
+         wall_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def profile_round(srv, rng, n, card, phase="profile", insert=True):
     """One more served round (20 000 queries, then 100 inserts unless
     ``insert`` is False) through ``srv`` (a server or an engine) under
@@ -2046,6 +2264,8 @@ def main():
     for name, c in il_packed_phase(dev, card).items():
         launches[name] += c
     for name, c in sharded_phase(card).items():
+        launches[name] += c
+    for name, c in baselines_phase(dev, card).items():
         launches[name] += c
 
     csrc = "src/repro_torch/kernels/csrc"

@@ -164,3 +164,16 @@ def compact(g: Graph) -> Graph:
 
 def reverse(g: Graph) -> Graph:
     return replace(g, src=g.dst, dst=g.src)
+
+
+def to_networkx(g: Graph):
+    """A ``networkx.DiGraph`` of the live edges over vertices ``0..n-1``.
+    ``networkx`` is imported here, so the rest of the port runs without
+    it."""
+    import networkx as nx
+    out = nx.DiGraph()
+    live = edge_mask(g).cpu().numpy()
+    out.add_nodes_from(range(int(g.n)))
+    out.add_edges_from(zip(g.src.cpu().numpy()[live].tolist(),
+                           g.dst.cpu().numpy()[live].tolist()))
+    return out

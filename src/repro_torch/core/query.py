@@ -224,6 +224,39 @@ def _admit_plane(p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
     return admit
 
 
+def relax_edges(tails: torch.Tensor, heads: torch.Tensor,
+                live: torch.Tensor, n_cap: int):
+    """(tails, heads, live) ready for :func:`relax`: tails clamped into
+    ``[0, n_cap)`` as the reference's gathers clamp, heads as int64, and
+    edges whose head lies outside ``[0, n_cap)`` dropped from ``live``, as
+    the reference's segment reductions drop them."""
+    live = live & (heads >= 0) & (heads < n_cap)
+    return tails.clamp(0, n_cap - 1).long(), heads.long(), live
+
+
+def relax(frontier: torch.Tensor, tails: torch.Tensor, heads: torch.Tensor,
+          live: torch.Tensor, *, n_cap: int, ftype=torch.int8,
+          m_cut: torch.Tensor | None = None) -> torch.Tensor:
+    """(n_cap, Q) bool: one BFS level of Q lanes.  Row x is set on lane q
+    when a ``live`` edge ``tails[e] -> heads[e] = x`` has its tail on lane
+    q's ``frontier`` (n_cap, Q) bool and, with ``m_cut`` (Q,), an edge
+    index ``e < m_cut[q]``.  Only the edges whose tail is on some lane's
+    frontier are gathered (``nonzero``); their lane rows are OR-ed into
+    their heads by ``index_reduce_("amax")`` on ``ftype``.  The relax step
+    of :func:`pruned_bfs` and of the B-BFS baseline; edges as
+    :func:`relax_edges` gives them (a backward step passes the edges'
+    heads as ``tails``)."""
+    eidx = torch.nonzero(frontier.any(1)[tails] & live).squeeze(1)
+    contrib = frontier[tails[eidx]]
+    if m_cut is not None:
+        contrib &= eidx[:, None] < m_cut[None, :]
+    nxt = torch.zeros((n_cap, frontier.shape[1]), dtype=ftype,
+                      device=frontier.device)
+    nxt.index_reduce_(0, heads[eidx], contrib.to(ftype), "amax",
+                      include_self=True)
+    return nxt > 0
+
+
 def _pruned_bfs_packed(g: Graph, v: torch.Tensor, admit: torch.Tensor,
                        frontier: torch.Tensor, m_cut, *, n_cap: int,
                        max_iters: int) -> torch.Tensor:
@@ -270,7 +303,8 @@ def _pruned_bfs_packed(g: Graph, v: torch.Tensor, admit: torch.Tensor,
     return bitset.unpack(hw, qc)
 
 
-def pruned_bfs(g: Graph, p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
+def pruned_bfs(g: Graph, p: PackedLabels | None, u: torch.Tensor,
+               v: torch.Tensor,
                admit: torch.Tensor | None = None,
                m_cut: torch.Tensor | None = None,
                dl_clean: bool | None = None, il=None, *, n_cap: int,
@@ -279,7 +313,9 @@ def pruned_bfs(g: Graph, p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
     """(Qc,) bool: resolve unknown queries by label-pruned BFS lanes.
 
     ``admit`` is a precomputed (n_cap, Qc) admit plane of any dtype (the
-    bfs_prune kernel's int8 plane), else the torch plane is built here.
+    bfs_prune kernel's int8 plane), else the torch plane is built here
+    from ``p``, which is read for nothing else (a caller with a plane of
+    its own, as the IP-lite baseline has, may pass ``p=None``).
     ``m_cut`` (Qc,) int32 is a per-lane edge-count cutoff: lane q traverses
     only edges with append index < m_cut[q], i.e. the edge set of its
     snapshot.  Stale lanes (m_cut < g.m) drop the DL prune.  ``dl_clean``
@@ -315,20 +351,12 @@ def pruned_bfs(g: Graph, p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
     hit = torch.zeros(qc, dtype=torch.bool, device=dev)
     lanes = torch.arange(qc, device=dev)
     v_safe = v.clamp(0, n_cap - 1).long()
-    src = g.src.clamp(0, n_cap - 1).long()
-    dst = g.dst.long()
-    live = live & (g.dst >= 0) & (g.dst < n_cap)
-    eids = torch.arange(g.m_cap, device=dev)
+    src, dst, live = relax_edges(g.src, g.dst, live, n_cap)
     it = 0
     while it < max_iters and bool(frontier.any() & ~hit.all()):
-        eidx = torch.nonzero(frontier.any(1)[src] & live).squeeze(1)
-        contrib = frontier[src[eidx]]
-        if m_cut is not None:
-            contrib &= eids[eidx][:, None] < m_cut[None, :]
-        nxt = torch.zeros((n_cap, qc), dtype=ftype, device=dev)
-        nxt.index_reduce_(0, dst[eidx], contrib.to(ftype), "amax",
-                          include_self=True)
-        nxt = (nxt > 0) & admit & ~visited & ~hit[None, :]
+        nxt = relax(frontier, src, dst, live, n_cap=n_cap, ftype=ftype,
+                    m_cut=m_cut)
+        nxt = nxt & admit & ~visited & ~hit[None, :]
         hit |= nxt[v_safe, lanes]
         visited |= nxt
         frontier = nxt

@@ -27,6 +27,17 @@ def power_law(n: int, m: int, *, alpha: float = 1.8, seed: int = 0,
     return src, dst
 
 
+def erdos_renyi(n: int, m: int, *, seed: int = 0
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """Uniform random directed edges, self-loops moved one id on."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, size=m, dtype=np.int32)
+    dst = rng.integers(0, n, size=m, dtype=np.int32)
+    loop = src == dst
+    dst[loop] = (dst[loop] + 1) % n
+    return src, dst
+
+
 def dag_like(n: int, m: int, *, seed: int = 0, back_frac: float = 0.02
              ) -> tuple[np.ndarray, np.ndarray]:
     """Mostly-forward edges (sparse, poorly connected); ``back_frac`` of the
@@ -42,6 +53,25 @@ def dag_like(n: int, m: int, *, seed: int = 0, back_frac: float = 0.02
     src = np.where(back, hi, lo)
     dst = np.where(back, lo, hi)
     return src.astype(np.int32), dst.astype(np.int32)
+
+
+def molecules(batch: int, n_nodes: int, n_edges: int, *, seed: int = 0):
+    """Batched small molecule-like graphs: positions, species and the
+    ``n_edges`` shortest pairs of each graph as its edges.
+
+    Returns (pos (B, N, 3) float32, species (B, N) int32, edge_index per
+    graph (B, 2, E) int32)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(scale=2.0, size=(batch, n_nodes, 3)).astype(np.float32)
+    species = rng.integers(0, 8, size=(batch, n_nodes), dtype=np.int32)
+    edges = np.zeros((batch, 2, n_edges), dtype=np.int32)
+    for b in range(batch):
+        d = np.linalg.norm(pos[b][:, None] - pos[b][None, :], axis=-1)
+        np.fill_diagonal(d, np.inf)
+        order = np.argsort(d.ravel())[:n_edges]
+        edges[b, 0] = (order // n_nodes).astype(np.int32)
+        edges[b, 1] = (order % n_nodes).astype(np.int32)
+    return pos, species, edges
 
 
 # Table 2 statistic presets: (n, m, generator, kwargs).  The comments give
