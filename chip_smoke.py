@@ -123,7 +123,29 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    must end in ``OK``.  One ``baselines`` line: the checks, DBL's build
    beside IP-lite's, each round's query and insert times, the SCC times
    and the sampler's.  The grid kernels' launches add to their counts.
-10. the ``kernels`` summary line, then the ``ok`` line last.
+10. gnn: the GNN family (``repro_torch.models.gnn``) at each model's full
+   CONFIG, TF32 off.  PNA on ``full_graph_sm`` (2 708 nodes, 10 556
+   uniform random edges, 1 433 features, 7 classes); NequIP, MACE and
+   DimeNet on ``molecule`` (128 graphs of 30 atoms and their 64 shortest
+   pairs from ``generators.molecules``, every DimeNet triplet, a random
+   energy target per graph).  Each model: energy invariance under a
+   random rotation (the geometric ones), the forward, forces and one SGD
+   step (``w - 0.05 g``) held against the same module on the CPU with the
+   same parameters (forward, forces, loss and the gradient vector within
+   |d| <= 1e-3 |want| + 1e-4 max|want|), the forward, forces and step
+   timed 5 times each from the initial parameters, and one step profiled
+   (device busy share); one ``gnn_model`` line each.  Then the example's
+   path on the LJ preset at full size: a fresh index (k = k' = 64)
+   filters ``minibatch_lg``'s samples (1 024 uniform seeds, fanouts 15
+   and 10, the 4 vertices of highest in-degree as targets), each equal
+   to the sample a host BFS over the index's live edges filters from the
+   same draws; PNA's CONFIG (602 features, 41 classes) steps on each, and
+   100 edges are inserted a round, 3 rounds (``gnn_minibatch`` line).
+   The sampler's verdict launches add to the grid kernel's count.  The
+   twin ``examples/gnn_reachability_torch.py`` runs at its defaults on
+   the card beside the CPU holds and must end in ``OK``; one ``gnn``
+   summary line.
+11. the ``kernels`` summary line, then the ``ok`` line last.
 """
 import json
 import re
@@ -198,6 +220,20 @@ EXAMPLES = {"quickstart_torch": ("examples/quickstart_torch.py",),
             "dynamic_reachability_torch": (
                 "examples/dynamic_reachability_torch.py",)}
 EXAMPLE_TIMEOUT_S = 300
+#: the gnn phase: each model's full CONFIG at a shape of
+#: ``configs/shapes.py``, with the class counts the reference's
+#: ``launch/cells.py`` gives each shape (Cora 7, Reddit 41, molecules 16);
+#: timed forwards and steps per model (after one untimed of each); rounds
+#: of sample, step and inserts on the LJ preset; the example's SGD rate;
+#: the tolerance of the card-against-CPU holds (float32 both, TF32 off)
+#: and of rotation invariance: |got - want| <= rtol |want| + atol max|want|
+GNN_CLASSES = {"full_graph_sm": 7, "minibatch_lg": 41, "molecule": 16}
+GNN_REPS = 5
+GNN_ROUNDS = 3
+GNN_LR = 0.05
+GNN_TOL = dict(rtol=1e-3, atol=1e-4)
+GNN_EXAMPLE = {"gnn_reachability_torch": (
+    "examples/gnn_reachability_torch.py",)}
 
 
 def emit(phase, **kw):
@@ -2019,16 +2055,27 @@ class _HostReach:
         return out
 
 
-def _run_examples(dev):
-    """Both example twins at once as subprocesses on ``dev``; each must
-    exit 0 with ``OK`` as the last word.  {name: result}."""
+def _same_sample(a, b):
+    """Two sampled subgraphs are equal: nodes, and each block's edges."""
+    return np.array_equal(a.nodes, b.nodes) and all(
+        np.array_equal(getattr(x, f), getattr(y, f))
+        for x, y in zip(a.blocks, b.blocks)
+        for f in ("src", "dst", "edge_valid"))
+
+
+def _start_examples(dev, examples):
+    """Start each example twin as a subprocess on ``dev``: (procs, t0)."""
     import os
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    t = time.perf_counter()
-    procs = {name: subprocess.Popen(
+    return {name: subprocess.Popen(
         [sys.executable, *args, "--device", dev.type], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for name, args in EXAMPLES.items()}
+        for name, args in examples.items()}, time.perf_counter()
+
+
+def _finish_examples(procs, t):
+    """Wait for the twins ``_start_examples`` started; each must exit 0
+    with ``OK`` as the last word.  {name: result}."""
     out = {}
     try:
         for name, proc in procs.items():
@@ -2155,10 +2202,7 @@ def baselines_phase(dev, card):
         csr, seeds, FANOUTS, _HostReach(n, ls, ld), targets,
         rng=np.random.default_rng(5))
     host_sample_ms = (time.perf_counter() - t) * 1e3
-    if not (np.array_equal(sub.nodes, host_sub.nodes) and all(
-            np.array_equal(getattr(a, f), getattr(b, f))
-            for a, b in zip(sub.blocks, host_sub.blocks)
-            for f in ("src", "dst", "edge_valid"))):
+    if not _same_sample(sub, host_sub):
         raise AssertionError("the DBL-filtered sample differs from the "
                              "host-BFS-filtered one")
     launches = {"verdicts_kernel": dbl_query_verdicts.launches,
@@ -2166,7 +2210,7 @@ def baselines_phase(dev, card):
     if launches["verdicts_kernel"] <= 0:
         raise AssertionError("the DBL server launched no verdicts kernel")
 
-    examples = _run_examples(dev)
+    examples = _finish_examples(*_start_examples(dev, EXAMPLES))
     emit("baselines", card=card, n=n, m=m, k=64, k_prime=64, ip_k=IP_K,
          queries=BASE_QUERIES, inserts=INSERTS,
          checks=dict(dbl_bbfs_ip_equal=True, host_bfs_lanes=checked,
@@ -2189,26 +2233,332 @@ def baselines_phase(dev, card):
     return launches
 
 
-def profile_round(srv, rng, n, card, phase="profile", insert=True):
-    """One more served round (20 000 queries, then 100 inserts unless
-    ``insert`` is False) through ``srv`` (a server or an engine) under
-    ``torch.profiler``: device time by kernel and the device's busy share
-    of the round's wall time.  Runs after the launch counts were read."""
+def _hold(what, got, want, tol):
+    """Raise unless ``got`` equals ``want`` (same shape and NaN pattern,
+    not all NaN) within |got - want| <= rtol |want| + atol max|want|; the
+    largest absolute error."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape or \
+            not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError(f"{what}: shape or NaN pattern differs")
+    ok = ~np.isnan(want)
+    if not ok.any():
+        raise AssertionError(f"{what}: nothing but NaN")
+    scale = float(np.abs(want[ok]).max())
+    err = np.abs(got[ok] - want[ok])
+    bad = err > tol["rtol"] * np.abs(want[ok]) + tol["atol"] * scale
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} of {bad.size} "
+                             f"values off, up to {err.max()} (max |want| "
+                             f"{scale})")
+    return float(err.max())
+
+
+def _gnn_full_batch(rng):
+    """``full_graph_sm`` (Cora-sized): uniform random edges, features and
+    labels, as CPU tensors."""
+    import torch
+    from repro_torch.configs.shapes import GNN_SHAPES
+    shape = GNN_SHAPES["full_graph_sm"]
+    n, m = shape.n_nodes, shape.n_edges
+    return {
+        "node_feat": torch.as_tensor(
+            rng.normal(size=(n, shape.d_feat)).astype(np.float32)),
+        "edge_index": torch.as_tensor(np.stack(
+            [rng.integers(0, n, m), rng.integers(0, n, m)]).astype(np.int32)),
+        "edge_valid": torch.ones(m, dtype=torch.bool),
+        "species": torch.zeros(n, dtype=torch.int32),
+        "labels": torch.as_tensor(rng.integers(
+            0, GNN_CLASSES["full_graph_sm"], n).astype(np.int32)),
+    }
+
+
+def _gnn_molecule_batch(rng):
+    """``molecule``: 128 graphs of 30 atoms and their 64 shortest pairs
+    (``generators.molecules``) block-diagonal, every DimeNet triplet, and
+    a random energy target per graph, as CPU tensors."""
+    import torch
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.graphs.batching import block_diagonal, graph_ids
+    from repro_torch.graphs.generators import molecules
+    from repro_torch.models.gnn.common import build_triplets
+    shape = GNN_SHAPES["molecule"]
+    b, n = shape.batch_graphs, shape.n_nodes
+    pos, species, edges = molecules(b, n, shape.n_edges,
+                                    seed=int(rng.integers(2**31)))
+    ei = block_diagonal(edges, n)
+    valid = np.ones(ei.shape[1], bool)
+    bound = int(np.bincount(ei[1], minlength=b * n)[ei[0]].sum())
+    t_in, t_out, t_val = build_triplets(ei, valid, bound)
+    k = int(t_val.sum())
+    return {
+        "node_feat": None,
+        "positions": torch.as_tensor(pos.reshape(-1, 3)),
+        "species": torch.as_tensor(species.reshape(-1)),
+        "edge_index": torch.as_tensor(ei),
+        "edge_valid": torch.as_tensor(valid),
+        "graph_ids": torch.as_tensor(graph_ids(b, n)),
+        "n_graphs": b,
+        "energy_target": torch.as_tensor(
+            rng.normal(size=b).astype(np.float32)),
+        "triplet_in": torch.as_tensor(t_in[:k]),
+        "triplet_out": torch.as_tensor(t_out[:k]),
+        "triplet_valid": torch.as_tensor(t_val[:k]),
+    }
+
+
+def _on(batch, dev):
+    return {k: v.to(dev) if hasattr(v, "to") else v for k, v in batch.items()}
+
+
+def _gnn_step(model, batch):
+    """The example's step: the loss, its gradients, ``w - 0.05 g``."""
+    from repro_torch.models.gnn.common import sgd_step
+    loss, _ = model.loss_fn(batch)
+    loss.backward()
+    sgd_step(model, GNN_LR)
+    return loss
+
+
+def _gnn_outputs(model, batch, geometric):
+    """What the holds compare: the forward (energies or logits), forces,
+    the loss and every parameter's gradient; leaves ``model`` stepped."""
+    import torch
+    from repro_torch.models.gnn.common import grads_to_numpy, sgd_step
+    fwd = model.energy if geometric else model.node_logits
+    with torch.no_grad():
+        out = {"forward": fwd(batch).cpu().numpy()}
+    if geometric:
+        out["forces"] = model.forces(batch).cpu().numpy()
+    loss, _ = model.loss_fn(batch)
+    loss.backward()
+    out["loss"] = float(loss.detach())
+    out["grads"] = grads_to_numpy(model)
+    sgd_step(model, GNN_LR)
+    return out
+
+
+def _gnn_model(name, model, batch_cpu, dev, card, rng):
+    """One model of the phase on the card: energy invariance under a
+    random rotation (geometric models), its outputs for the holds, the
+    forward (and forces) and step times, and one profiled step.  Every
+    step starts from the initial parameters (restored after it, untimed:
+    at the full configs, ``w - 0.05 g`` steps on these batches diverge
+    within three).  (line, card outputs, CPU twin of the module)."""
+    import copy
+
+    import torch
+    from repro_torch.models.gnn.irreps import random_rotation
+    geometric = "positions" in batch_cpu
+    cpu_model = copy.deepcopy(model)
+    model = model.to(dev)
+    batch = _on(batch_cpu, dev)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    line = {"model": name, "card": card,
+            "nodes": int(batch_cpu["species"].shape[0]),
+            "edges": int(batch_cpu["edge_index"].shape[1])}
+    if "triplet_in" in batch_cpu:
+        line["triplets"] = int(batch_cpu["triplet_in"].shape[0])
+    if geometric:
+        R = torch.as_tensor(random_rotation(rng), dtype=torch.float32,
+                            device=dev)
+        with torch.no_grad():
+            e0 = model.energy(batch).cpu().numpy()
+            e1 = model.energy({**batch, "positions": batch["positions"]
+                               @ R.T}).cpu().numpy()
+        line["rotation_max_abs_err"] = _hold(f"{name} energy invariance",
+                                             e1, e0, GNN_TOL)
+    out = _gnn_outputs(model, batch, geometric)
+    model.load_state_dict(initial)
+    line["loss"] = out["loss"]
+    fwd = model.energy if geometric else model.node_logits
+    with torch.no_grad():
+        fwd(batch)
+        line["forward_ms"] = [_sync_time(lambda: fwd(batch))[1]
+                              for _ in range(GNN_REPS)]
+    if geometric:
+        line["forces_ms"] = [_sync_time(lambda: model.forces(batch))[1]
+                             for _ in range(GNN_REPS)]
+    line["step_ms"] = []
+    for _ in range(GNN_REPS):
+        loss, ms = _sync_time(lambda: _gnn_step(model, batch))
+        model.load_state_dict(initial)
+        if not np.isclose(float(loss.detach()), out["loss"], rtol=1e-4):
+            raise AssertionError(f"{name}: a timed step's loss {float(loss)}"
+                                 f" is not the first step's {out['loss']}")
+        line["step_ms"].append(ms)
+    t, t_end, per_kernel = _device_profile(lambda: _gnn_step(model, batch))
+    model.load_state_dict(initial)
+    line["profiled_step"] = dict(wall_ms=(t_end - t) * 1e3,
+                                 **_busy((t_end - t) * 1e3, per_kernel, 5))
+    return line, out, cpu_model
+
+
+def _gnn_hold(name, cpu_model, batch_cpu, want):
+    """The CPU twin on the CPU batch against the card's outputs: the
+    largest absolute error of each.  The gradients are held as one vector
+    (scaled by the largest of all): some parameters' true gradients are 0
+    (the last layer's l > 0 mixers), which float32 rounds to noise."""
+    got = _gnn_outputs(cpu_model, batch_cpu, "positions" in batch_cpu)
+    errs = {k: _hold(f"{name} {k} (card vs CPU)", want[k], got[k],
+                     GNN_TOL)
+            for k in ("forward", "forces", "loss") if k in got}
+    names = sorted(got["grads"])
+    errs["grads"] = _hold(
+        f"{name} gradients (card vs CPU)",
+        np.concatenate([want["grads"][p].ravel() for p in names]),
+        np.concatenate([got["grads"][p].ravel() for p in names]), GNN_TOL)
+    return errs
+
+
+def _gnn_minibatch(dev, card, rng):
+    """The example's path on the LJ preset at full size: a DBL index
+    (k = k' = 64) filters ``minibatch_lg``'s samples (1 024 seeds, fanouts
+    15 and 10, the 4 vertices of highest in-degree as targets); PNA's full
+    CONFIG (602 features, 41 classes) takes a step on each; 100 edges are
+    inserted a round.  Each sample must equal the one a host BFS over the
+    index's live edges filters from the same draws."""
+    import torch
+    from repro_torch.configs import pna as pna_cfg
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.graphs.generators import table2_graph
+    from repro_torch.graphs.sampler import CSR, reachability_filtered_sample
+    from repro_torch.models.gnn.pna import PNA
+
+    shape = GNN_SHAPES["minibatch_lg"]
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    m = int(src.size)
+    g = make_graph(src, dst, n, m_cap=m + GNN_ROUNDS * INSERTS, device=dev)
+    idx, build_ms = _sync_time(lambda: DBLIndex.build(
+        g, n_cap=n, k=64, k_prime=64, max_iters=64, check="raise",
+        device=dev))
+    csr = CSR.from_edges(n, src, dst)
+    targets = np.argsort(-np.bincount(dst, minlength=n))[:SAMPLE_TARGETS] \
+        .astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    feats = torch.randn((n, shape.d_feat), generator=gen, device=dev)
+    labels = torch.randint(0, GNN_CLASSES["minibatch_lg"], (n,),
+                           generator=gen, device=dev)
+    model = PNA(pna_cfg.CONFIG.scaled(n_classes=GNN_CLASSES["minibatch_lg"]),
+                shape.d_feat, seed=int(rng.integers(2**31))).to(dev)
+    rounds = []
+    for r in range(GNN_ROUNDS):
+        seeds = rng.choice(n, shape.batch_nodes, replace=False)
+        draw = int(rng.integers(2**31))
+        sub, sample_ms = _sync_time(lambda: reachability_filtered_sample(
+            csr, seeds, shape.fanout, idx, targets,
+            rng=np.random.default_rng(draw)))
+        ls, ld = live_edges(idx.graph)
+        host = reachability_filtered_sample(
+            csr, seeds, shape.fanout, _HostReach(n, ls, ld), targets,
+            rng=np.random.default_rng(draw))
+        if not _same_sample(sub, host):
+            raise AssertionError(f"gnn round {r}: the DBL-filtered sample "
+                                 "differs from the host-BFS-filtered one")
+        nodes = torch.as_tensor(sub.nodes, device=dev).long()
+        batch = {
+            "node_feat": feats[nodes],
+            "edge_index": torch.as_tensor(np.stack([
+                np.concatenate([b.src for b in sub.blocks]),
+                np.concatenate([b.dst for b in sub.blocks])]), device=dev),
+            "edge_valid": torch.as_tensor(np.concatenate(
+                [b.edge_valid for b in sub.blocks]), device=dev),
+            "species": torch.zeros(nodes.shape[0], dtype=torch.int32,
+                                   device=dev),
+            "labels": labels[nodes],
+        }
+        loss, step_ms = _sync_time(lambda: _gnn_step(model, batch))
+        if not torch.isfinite(loss):
+            raise AssertionError(f"gnn round {r}: loss {float(loss)}")
+        ns = rng.integers(0, n, INSERTS).astype(np.int32)
+        nd = rng.integers(0, n, INSERTS).astype(np.int32)
+        idx, insert_ms = _sync_time(lambda: idx.insert_edges(
+            ns, nd, max_iters=64))
+        rounds.append(dict(
+            round=r, nodes=int(sub.nodes.size),
+            kept_edges=sum(int(b.edge_valid.sum()) for b in sub.blocks),
+            sampled_edges=sum(int(b.edge_valid.size) for b in sub.blocks),
+            sample_ms=sample_ms, step_ms=step_ms, insert_ms=insert_ms,
+            loss=float(loss.detach())))
+    emit("gnn_minibatch", card=card, n=n, m=m, k=64, k_prime=64,
+         batch_nodes=shape.batch_nodes, fanouts=shape.fanout,
+         d_feat=shape.d_feat, targets=targets.tolist(), build_ms=build_ms,
+         rounds=rounds, samples_equal_host_bfs=True)
+
+
+def gnn_phase(dev, card):
+    """The GNN family at each model's full CONFIG on the card, each held
+    against the same module on the CPU; the example's path on the LJ
+    preset; the example twin.  Returns the grid kernels' launches in this
+    phase (the sampler's verdicts)."""
+    import torch
+    from repro_torch.configs import dimenet, mace, nequip, pna
+    from repro_torch.kernels.bfs_prune.bfs_prune import bfs_admit_plane
+    from repro_torch.kernels.dbl_query.dbl_query import dbl_query_verdicts
+    from repro_torch.models.gnn.dimenet import DimeNet
+    from repro_torch.models.gnn.mace import MACE
+    from repro_torch.models.gnn.nequip import NequIP
+    from repro_torch.models.gnn.pna import PNA
+
+    # float32 matmuls on the card, not TF32 (the default, set here because
+    # the holds compare float32 on the card with float32 on the CPU)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(8)
+    full = _gnn_full_batch(rng)
+    mol = _gnn_molecule_batch(rng)
+    mol_classes = GNN_CLASSES["molecule"]
+    models = [
+        ("pna", PNA(pna.CONFIG.scaled(
+            n_classes=GNN_CLASSES["full_graph_sm"]),
+            full["node_feat"].shape[1], seed=1), full),
+        ("nequip", NequIP(nequip.CONFIG.scaled(n_classes=mol_classes), 0,
+                          seed=2), mol),
+        ("mace", MACE(mace.CONFIG.scaled(n_classes=mol_classes), 0, seed=3),
+         mol),
+        ("dimenet", DimeNet(dimenet.CONFIG.scaled(n_classes=mol_classes),
+                            0, seed=4), mol),
+    ]
+    runs = []
+    for name, model, batch in models:
+        line, out, cpu_model = _gnn_model(name, model, batch, dev, card, rng)
+        emit("gnn_model", **line)
+        runs.append((name, cpu_model, batch, out))
+
+    dbl_query_verdicts.launches = 0
+    bfs_admit_plane.launches = 0
+    _gnn_minibatch(dev, card, rng)
+    launches = {"verdicts_kernel": dbl_query_verdicts.launches,
+                "admit_kernel": bfs_admit_plane.launches}
+    if launches["verdicts_kernel"] <= 0:
+        raise AssertionError("the filtered sampler launched no verdicts "
+                             "kernel")
+
+    procs = _start_examples(dev, GNN_EXAMPLE)
+    try:
+        holds = {name: _gnn_hold(name, cpu_model, batch, out)
+                 for name, cpu_model, batch, out in runs}
+    finally:
+        examples = _finish_examples(*procs)
+    emit("gnn", card=card, holds_max_abs_err=holds, tolerance=GNN_TOL,
+         examples=examples,
+         launches=launches, wall_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def _device_profile(run):
+    """``run()`` under ``torch.profiler`` (CPU and CUDA activity), ended by
+    a synchronize: (t_start, t_end, {kernel: (device us, calls)})."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    u = rng.integers(0, n, QUERIES).astype(np.int32)
-    v = rng.integers(0, n, QUERIES).astype(np.int32)
-    ns = rng.integers(0, n, INSERTS).astype(np.int32)
-    nd = rng.integers(0, n, INSERTS).astype(np.int32)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        srv.query(u, v)
-        tq = time.perf_counter()
-        if insert:
-            srv.insert(ns, nd)
+        run()
         torch.cuda.synchronize()
         t_end = time.perf_counter()
     per_kernel = {}
@@ -2219,16 +2569,43 @@ def profile_round(srv, rng, n, card, phase="profile", insert=True):
         if us is None:
             us = e.self_cuda_time_total
         per_kernel[e.key] = (us, e.count)
+    return t, t_end, per_kernel
+
+
+def _busy(wall_ms, per_kernel, top_n=10):
+    """The device-time fields of a profiled window's line."""
     device_ms = sum(us for us, _ in per_kernel.values()) / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return dict(
+        device_ms=device_ms if per_kernel else "not measured",
+        device_busy_share=device_ms / wall_ms if per_kernel
+        else "not measured",
+        top_kernels=[{"name": k[:80], "device_ms": us / 1e3, "calls": c}
+                     for k, (us, c) in top])
+
+
+def profile_round(srv, rng, n, card, phase="profile", insert=True):
+    """One more served round (20 000 queries, then 100 inserts unless
+    ``insert`` is False) through ``srv`` (a server or an engine) under
+    ``torch.profiler``: device time by kernel and the device's busy share
+    of the round's wall time.  Runs after the launch counts were read."""
+    u = rng.integers(0, n, QUERIES).astype(np.int32)
+    v = rng.integers(0, n, QUERIES).astype(np.int32)
+    ns = rng.integers(0, n, INSERTS).astype(np.int32)
+    nd = rng.integers(0, n, INSERTS).astype(np.int32)
+    marks = {}
+
+    def run():
+        srv.query(u, v)
+        marks["tq"] = time.perf_counter()
+        if insert:
+            srv.insert(ns, nd)
+    t, t_end, per_kernel = _device_profile(run)
     wall_ms = (t_end - t) * 1e3
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     emit(phase, card=card, wall_ms=wall_ms,
-         query_wall_ms=(tq - t) * 1e3, insert_wall_ms=(t_end - tq) * 1e3,
-         device_ms=device_ms if per_kernel else "not measured",
-         device_busy_share=device_ms / wall_ms if per_kernel
-         else "not measured",
-         top_kernels=[{"name": k[:80], "device_ms": us / 1e3, "calls": c}
-                      for k, (us, c) in top])
+         query_wall_ms=(marks["tq"] - t) * 1e3,
+         insert_wall_ms=(t_end - marks["tq"]) * 1e3,
+         **_busy(wall_ms, per_kernel))
 
 
 def main():
@@ -2266,6 +2643,8 @@ def main():
     for name, c in sharded_phase(card).items():
         launches[name] += c
     for name, c in baselines_phase(dev, card).items():
+        launches[name] += c
+    for name, c in gnn_phase(dev, card).items():
         launches[name] += c
 
     csrc = "src/repro_torch/kernels/csrc"

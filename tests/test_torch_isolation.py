@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``repro_torch`` or ``chip_smoke.py``
-imports JAX or the JAX package, the package imports with both blocked,
+"""The port stands alone: no file of ``repro_torch``, no example twin
+(``examples/*_torch.py``) and not ``chip_smoke.py`` imports JAX or the
+JAX package, the package imports with both blocked,
 and entry points default to CUDA without moving to the CPU silently."""
 import ast
 import os
@@ -13,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path: Path):
