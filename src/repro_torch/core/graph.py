@@ -36,6 +36,12 @@ class Graph:
     del_epoch: int = 0       # number of delete batches applied
 
     @property
+    def n_cap(self) -> int:
+        """-1: the vertex capacity is carried by the label planes' shapes,
+        not by the graph."""
+        return -1
+
+    @property
     def m_cap(self) -> int:
         return self.src.shape[0]
 
@@ -49,9 +55,12 @@ class Graph:
                      self.del_epoch)
 
 
-def make_graph(src, dst, n: int, *, m_cap: int | None = None,
-               device=None) -> Graph:
-    """Build a Graph from edge arrays, with optional headroom ``m_cap``."""
+def make_graph(src, dst, n: int, *, n_cap: int | None = None,
+               m_cap: int | None = None, device=None) -> Graph:
+    """Build a Graph from edge arrays, with optional headroom ``m_cap``.
+    ``n_cap`` is accepted and ignored: the label planes carry the vertex
+    capacity."""
+    del n_cap
     dev = resolve_device(device)
     src = np.asarray(src, dtype=np.int32)
     dst = np.asarray(dst, dtype=np.int32)

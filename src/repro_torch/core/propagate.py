@@ -144,30 +144,40 @@ def propagate(labels: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 def reach_mask(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
                seeds: torch.Tensor, *, n_cap: int, max_iters: int,
-               reverse: bool = False) -> tuple[torch.Tensor, int]:
+               reverse: bool = False, plane_repr: str = "bool"
+               ) -> tuple[torch.Tensor, int]:
     """(n_cap,) bool: the ``live``-edge reachability closure of ``seeds``
     (inclusive), a single-lane OR fixpoint.  Returns (mask, iters).
 
     The invalidation frontier of the delta rebuild: seeded from the heads
     of tombstoned edges (tails with ``reverse=True``) and propagated over
     the edge set the labels were built against.  With ``max_iters >=
-    n_cap`` the closure always converges."""
+    n_cap`` the closure always converges.  ``plane_repr="packed"`` runs
+    the fixpoint on one word a vertex, bitwise equal."""
     plane = seeds[:, None].to(torch.uint8)
     out, iters = propagate(plane, src, dst, live, seeds, n_cap=n_cap,
                            max_iters=max_iters, reverse=reverse,
-                           inplace=True)
+                           plane_repr=plane_repr, inplace=True)
     return out[:, 0].to(torch.bool), iters
 
 
 def push_boundary(src: torch.Tensor, dst: torch.Tensor, live: torch.Tensor,
                   dirty: torch.Tensor, *, n_cap: int,
-                  reverse: bool = False) -> torch.Tensor:
+                  reverse: bool = False,
+                  plane_repr: str = "bool") -> torch.Tensor:
     """(n_cap,) bool: vertices with a live edge into the ``dirty`` set (in
     the propagation direction).  With the dirty set they form the first
-    frontier of a delta fixpoint."""
+    frontier of a delta fixpoint.  ``plane_repr="packed"`` ORs one word a
+    edge by source (``bitset.sorted_segment_or``), bitwise equal."""
+    check_plane_repr(plane_repr)
     if reverse:
         src, dst = dst, src
     hit = live & dirty[dst.clamp(0, n_cap - 1).long()]
+    if plane_repr == "packed":
+        order = torch.argsort(src)
+        agg = bitset.sorted_segment_or(hit.to(torch.int32)[order, None],
+                                       src[order], n_cap)
+        return agg[:, 0] != 0
     out = torch.zeros(n_cap, dtype=torch.uint8, device=dirty.device)
     segment_or(out[:, None], hit[:, None], src)
     return out.to(torch.bool)

@@ -46,6 +46,19 @@ def test_table2_generators_match(name):
     assert TGen.TABLE2_PRESETS[name][:2] == JGen.TABLE2_PRESETS[name][:2]
 
 
+def test_make_graph_takes_n_cap_and_ignores_it():
+    src = np.array([0, 1, 2], np.int32)
+    dst = np.array([1, 2, 3], np.int32)
+    gj = JG.make_graph(src, dst, 4, n_cap=8, m_cap=5)
+    gt = TG.make_graph(src, dst, 4, n_cap=8, m_cap=5, device=CPU)
+    plain = TG.make_graph(src, dst, 4, m_cap=5, device=CPU)
+    assert gt.n_cap == gj.n_cap == -1
+    for f in ("src", "dst", "n", "del_at"):
+        _eq(getattr(gj, f), getattr(gt, f))
+        _eq(getattr(plain, f), getattr(gt, f))
+    assert gt.m == int(gj.m) and gt.m_cap == gj.m_cap == 5
+
+
 def test_graph_make_insert_degrees_match():
     rng = np.random.default_rng(0)
     n, m = 40, 120

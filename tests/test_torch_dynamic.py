@@ -117,6 +117,54 @@ def test_reach_mask_push_boundary_and_host_reach_match(reverse):
                          torch.from_numpy(dirty), n_cap=n, reverse=reverse))
 
 
+@pytest.mark.parametrize("plane_repr", ["bool", "packed"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_reach_mask_push_boundary_plane_repr_match(reverse, plane_repr):
+    """Both plane representations, on the path 0->1->2->3 at n_cap 8 and
+    on a random graph, bitwise against the reference."""
+    path = np.array([0, 1, 2], np.int32), np.array([1, 2, 3], np.int32)
+    rng = np.random.default_rng(21)
+    rand = (rng.integers(0, 40, 120).astype(np.int32),
+            rng.integers(0, 40, 120).astype(np.int32))
+    for (src, dst), n_cap in ((path, 8), (rand, 40)):
+        live = np.ones(src.size, bool) if n_cap == 8 \
+            else rng.random(src.size) < 0.8
+        seeds = np.zeros(n_cap, bool)
+        dirty = np.zeros(n_cap, bool)
+        if n_cap == 8:
+            seeds[3 if reverse else 0] = True
+            dirty[0 if reverse else 3] = True
+        else:
+            seeds[rng.choice(n_cap, 3, replace=False)] = True
+            dirty[rng.choice(n_cap, 8, replace=False)] = True
+        gj = JG.make_graph(src, dst, n_cap)
+        gt = TG.make_graph(src, dst, n_cap, device=CPU)
+        kw = dict(n_cap=n_cap, reverse=reverse, plane_repr=plane_repr)
+        mj, itj = JP.reach_mask(gj.src, gj.dst, jnp.asarray(live),
+                                jnp.asarray(seeds), max_iters=n_cap, **kw)
+        mt, itt = TP.reach_mask(gt.src, gt.dst, torch.from_numpy(live),
+                                torch.from_numpy(seeds), max_iters=n_cap,
+                                **kw)
+        _eq(mj, mt)
+        assert int(itj) == itt
+        bj = JP.push_boundary(gj.src, gj.dst, jnp.asarray(live),
+                              jnp.asarray(dirty), **kw)
+        bt = TP.push_boundary(gt.src, gt.dst, torch.from_numpy(live),
+                              torch.from_numpy(dirty), **kw)
+        _eq(bj, bt)
+        if n_cap == 8:
+            want_mask = [0, 0, 0, 0, 0, 0, 0, 0]
+            want_mask[:4] = [1, 1, 1, 1]
+            want_push = [0] * 8
+            want_push[1 if reverse else 2] = 1
+            _eq(mt.to(torch.int64), want_mask)
+            _eq(bt.to(torch.int64), want_push)
+    with pytest.raises(ValueError):
+        TP.push_boundary(gt.src, gt.dst, torch.from_numpy(live),
+                         torch.from_numpy(dirty), n_cap=40,
+                         plane_repr="words")
+
+
 def test_delta_plane_state_matches():
     rng = np.random.default_rng(5)
     n, m, k, kp = 60, 150, 8, 16
