@@ -145,7 +145,33 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    twin ``examples/gnn_reachability_torch.py`` runs at its defaults on
    the card beside the CPU holds and must end in ``OK``; one ``gnn``
    summary line.
-11. the ``kernels`` summary line, then the ``ok`` line last.
+11. mind: MIND (``repro_torch.models.recsys.mind``) at its full CONFIG
+   (2 097 152 items x 64, a 512 MiB float32 table), TF32 off: one loss
+   step (forward, backward, ``w - 0.5 g``) at batch 256 with the config's
+   50 history slots and 512 negatives, and ``retrieval_scores`` for 16
+   users against 1 000 000 uniform candidates, held against the same
+   module on the CPU (the loss, every gradient, the item table's on the
+   rows the batch touches, and the scores, within ``GNN_TOL``); 5 timed
+   steps and retrievals, one step profiled; one ``mind`` line.  No
+   kernel of the port's is on this path.
+12. lm: the transformer family (``repro_torch.models.transformer``,
+   ``serve/decode.py``) at full width, TF32 off: tinyllama-1.1b and
+   qwen1.5-0.5b whole, gemma2-27b and moonshot-v1-16b-a3b cut to 4
+   layers, arctic-480b to 1 (``LM_RUNS``), each drawn on the card from a
+   seed.  In the config's dtype (bfloat16): prefill 4 x 32, a decode
+   step, ``generate`` of 32 greedy steps (examples/serve_lm.py's call;
+   tokens/s), an SGD step on 4 x 128 tokens, a profiled decode step and
+   SGD step (busy share); tinyllama and qwen also prefill 4 x 2 048 (two
+   kv chunks).  Then, in float32 compute with no MoE drops, prefill then
+   ``decode_step`` against the forward at tests/test_models_lm.py's
+   tolerances, and for gemma2 also past its window (prefill 5 120,
+   decode at 5 120 against the forward on 6 144 tokens); tinyllama and
+   qwen in float32 held against the same module on the CPU (prefill,
+   four decode steps fed the card's greedy ids, the loss; ``GNN_TOL``).
+   The twin ``examples/serve_lm_torch.py`` runs beside it on the card and
+   must end in ``OK``.  One ``lm_model`` line a config, one ``lm`` line.
+   No kernel of the port's is on this path.
+13. the ``kernels`` summary line, then the ``ok`` line last.
 """
 import json
 import re
@@ -234,6 +260,36 @@ GNN_LR = 0.05
 GNN_TOL = dict(rtol=1e-3, atol=1e-4)
 GNN_EXAMPLE = {"gnn_reachability_torch": (
     "examples/gnn_reachability_torch.py",)}
+#: the mind phase: the loss step's batch (the config's hist_len and
+#: n_neg), the timed steps, the retrieval's users and candidates
+MIND_BATCH = 256
+MIND_REPS = 5
+MIND_LR = 0.5
+MIND_USERS = 16
+MIND_CANDIDATES = 1_000_000
+#: the lm phase: (name, config module, layers kept or None for all), at
+#: full width; examples/serve_lm.py's batch, prompt and greedy steps; the
+#: long prefills (two kv chunks; gemma2 past its 4 096 window, held
+#: against a forward on 6 144 tokens at position 5 120); the SGD step's
+#: sequence and rate (small: the weights must stay finite at full width);
+#: the self-consistency tolerances of tests/test_models_lm.py (prefill,
+#: decode); timed repetitions
+LM_RUNS = (("tinyllama-1.1b", "tinyllama_11b", None),
+           ("qwen1.5-0.5b", "qwen15_05b", None),
+           ("gemma2-27b", "gemma2_27b", 4),
+           ("moonshot-v1-16b-a3b", "moonshot_v1_16b_a3b", 4),
+           ("arctic-480b", "arctic_480b", 1))
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 32, 32
+LM_LONG = 2_048
+GEMMA_LONG = (5_120, 6_144)
+LM_TRAIN_SEQ = 128
+LM_LR = 1e-4
+LM_PREFILL_TOL = dict(rtol=2e-4, atol=2e-4)
+LM_DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
+LM_REPS = 3
+#: decode steps held against the CPU, fed the card's greedy ids
+LM_CPU_STEPS = 4
+LM_EXAMPLE = {"serve_lm_torch": ("examples/serve_lm_torch.py",)}
 
 
 def emit(phase, **kw):
@@ -2314,7 +2370,7 @@ def _on(batch, dev):
 
 def _gnn_step(model, batch):
     """The example's step: the loss, its gradients, ``w - 0.05 g``."""
-    from repro_torch.models.gnn.common import sgd_step
+    from repro_torch.models.params import sgd_step
     loss, _ = model.loss_fn(batch)
     loss.backward()
     sgd_step(model, GNN_LR)
@@ -2325,7 +2381,7 @@ def _gnn_outputs(model, batch, geometric):
     """What the holds compare: the forward (energies or logits), forces,
     the loss and every parameter's gradient; leaves ``model`` stepped."""
     import torch
-    from repro_torch.models.gnn.common import grads_to_numpy, sgd_step
+    from repro_torch.models.params import grads_to_numpy, sgd_step
     fwd = model.energy if geometric else model.node_logits
     with torch.no_grad():
         out = {"forward": fwd(batch).cpu().numpy()}
@@ -2548,6 +2604,343 @@ def gnn_phase(dev, card):
     return launches
 
 
+def _mind_config():
+    from repro_torch.configs import mind
+    return mind.CONFIG
+
+
+def _mind_batch(rng, cfg, b, dev):
+    """The reference test's batch at the config's sizes: uniform ids, ~80 %
+    of the history live, the first slot always."""
+    import torch
+    mask = (rng.random((b, cfg.hist_len)) < 0.8).astype(np.float32)
+    mask[:, 0] = 1.0
+    return {
+        "hist": torch.as_tensor(rng.integers(0, cfg.n_items, (
+            b, cfg.hist_len)).astype(np.int32), device=dev),
+        "hist_mask": torch.as_tensor(mask, device=dev),
+        "target": torch.as_tensor(rng.integers(0, cfg.n_items, b)
+                                  .astype(np.int32), device=dev),
+        "negatives": torch.as_tensor(rng.integers(0, cfg.n_items, cfg.n_neg)
+                                     .astype(np.int32), device=dev),
+    }
+
+
+def _mind_outputs(model, batch):
+    """The loss, the small parameters' gradients and the item table's
+    gradient on the rows the batch touches (every other row's must be 0):
+    numpy, the gradients cleared after."""
+    import torch
+    loss, _ = model.loss_fn(batch)
+    loss.backward()
+    rows = torch.unique(torch.cat([batch["hist"].reshape(-1),
+                                   batch["target"], batch["negatives"]]))
+    g = model.item_embed.grad
+    untouched = torch.ones(g.shape[0], dtype=torch.bool, device=g.device)
+    untouched[rows.long()] = False
+    if bool(g[untouched].ne(0).any()):
+        raise AssertionError("mind: a row no id touches has a gradient")
+    out = {"loss": float(loss.detach()),
+           "item_embed_rows": g[rows.long()].cpu().numpy(),
+           **{name: p.grad.cpu().numpy()
+              for name, p in model.named_parameters()
+              if name != "item_embed"}}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def mind_phase(dev, card):
+    """MIND at its full CONFIG on the card (2 097 152 items x 64, a
+    512 MiB float32 table): one loss step (forward, backward, SGD) at the
+    config's history and negatives, and ``retrieval_scores`` for 16 users
+    against 1 000 000 candidates, each held against the same module on
+    the CPU; the steps and retrieval timed, one step profiled."""
+    import copy
+
+    import torch
+    from repro_torch.models.params import sgd_step
+    from repro_torch.models.recsys.mind import MIND
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = _mind_config()
+    rng = np.random.default_rng(11)
+    torch.cuda.reset_peak_memory_stats()
+    model = MIND(cfg, seed=11, device=dev)
+    cpu_model = copy.deepcopy(model).cpu()
+    batch = _mind_batch(rng, cfg, MIND_BATCH, dev)
+    users = _mind_batch(rng, cfg, MIND_USERS, dev)
+    cands = torch.as_tensor(rng.integers(0, cfg.n_items, MIND_CANDIDATES)
+                            .astype(np.int32), device=dev)
+
+    out = _mind_outputs(model, batch)
+    with torch.no_grad():
+        scores = model.retrieval_scores(users["hist"], users["hist_mask"],
+                                        cands)
+        _sync_time(lambda: model.retrieval_scores(
+            users["hist"], users["hist_mask"], cands))
+        retrieval_ms = [_sync_time(lambda: model.retrieval_scores(
+            users["hist"], users["hist_mask"], cands))[1]
+            for _ in range(MIND_REPS)]
+
+    def step():
+        loss, _ = model.loss_fn(batch)
+        loss.backward()
+        sgd_step(model, MIND_LR)
+        return loss
+    step()
+    step_ms, losses = [], []
+    for _ in range(MIND_REPS):
+        loss, ms = _sync_time(step)
+        step_ms.append(ms)
+        losses.append(float(loss.detach()))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"mind: step losses {losses}")
+    t, t_end, per_kernel = _device_profile(step)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    want = _mind_outputs(cpu_model, cpu_batch)
+    holds = {k: _hold(f"mind {k} (card vs CPU)", out[k], want[k], GNN_TOL)
+             for k in want}
+    with torch.no_grad():
+        holds["retrieval"] = _hold(
+            "mind retrieval (card vs CPU)", scores.cpu().numpy(),
+            cpu_model.retrieval_scores(users["hist"].cpu(),
+                                       users["hist_mask"].cpu(),
+                                       cands.cpu()).numpy(), GNN_TOL)
+    # the least bytes retrieval moves: the candidates' ids and rows once,
+    # the (users, candidates) scores once
+    d = cfg.embed_dim
+    retrieval_bytes = MIND_CANDIDATES * (4 + 4 * d) + \
+        MIND_USERS * MIND_CANDIDATES * 4
+    emit("mind", card=card, n_items=cfg.n_items, embed_dim=d,
+         n_interests=cfg.n_interests, capsule_iters=cfg.capsule_iters,
+         batch=MIND_BATCH, hist_len=cfg.hist_len, n_neg=cfg.n_neg,
+         users=MIND_USERS, candidates=MIND_CANDIDATES,
+         table_mib=cfg.n_items * d * 4 / 2 ** 20,
+         step_ms=step_ms, losses=losses, retrieval_ms=retrieval_ms,
+         retrieval_bytes_bound_ms=retrieval_bytes / PEAK_BYTES_PER_S * 1e3,
+         profiled_step=dict(wall_ms=(t_end - t) * 1e3,
+                            **_busy((t_end - t) * 1e3, per_kernel, 5)),
+         peak_memory_gb=peak_gb, holds_max_abs_err=holds,
+         tolerance=GNN_TOL, wall_s=time.perf_counter() - t_phase)
+
+
+def _lm_config(module, layers):
+    """A config of ``configs/`` at full width, cut to ``layers`` layers
+    (None keeps them all)."""
+    import importlib
+    cfg = importlib.import_module(f"repro_torch.configs.{module}").CONFIG
+    return cfg if layers is None else cfg.scaled(n_layers=layers)
+
+
+def _no_drop(cfg):
+    """The config with every MoE slot inside the capacity
+    (capacity_factor 2 E / K gives C >= 2 T): a forward over many tokens
+    then routes as decode over few does, as the reference's SMOKE configs
+    set it (capacity_factor 8) for the same check."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return cfg.scaled(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=2 * cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def _allclose(what, got, want, tol):
+    """Raise unless |got - want| <= atol + rtol |want| elementwise (the
+    reference test's assert_allclose); the largest absolute error."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    if got.shape != want.shape or not np.isfinite(got).all() or \
+            (err > tol["atol"] + tol["rtol"] * np.abs(want)).any():
+        raise AssertionError(f"{what}: off by up to {err.max()} "
+                             f"(shapes {got.shape}, {want.shape})")
+    return float(err.max())
+
+
+def _f32(x):
+    return x.detach().float().cpu().numpy()
+
+
+def _lm_self_check(model, cfg, rng, dev, long=None):
+    """In float32 compute without drops: prefill(S) then ``decode_step``
+    at S against the forward on S + 1 tokens (the reference test's check
+    and tolerances).  ``long=(s, s_full)``: prefill s tokens, decode at
+    s, against the forward on s_full tokens at s (gemma2 past its
+    window); batch 1 there.  Largest errors.
+
+    The weights are converted to float32 storage first (the same values:
+    a bfloat16 weight cast at use), so that no layer casts its whole
+    expert stack at once (arctic's would not fit beside it)."""
+    import torch
+    from repro_torch.models.transformer.model import _unembed
+    torch.cuda.empty_cache()
+    model.float()
+    model.cfg = _no_drop(cfg.scaled(dtype="float32"))
+    s, s_full, b = (LM_PROMPT, LM_PROMPT + 1, LM_BATCH) if long is None \
+        else (*long, 1)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s_full))
+                          .astype(np.int32), device=dev)
+    with torch.no_grad():
+        x, _ = model.forward_hidden(tok)
+        full = _unembed(model.params, model.cfg, x[:, s - 1:s + 1])
+        del x
+        last, cache = model.prefill(tok[:, :s], s + 1)
+        dec, _ = model.decode_step(cache, tok[:, s], s)
+    del cache
+    return {"prefill": _allclose("prefill vs forward", _f32(last),
+                                 _f32(full[:, 0]), LM_PREFILL_TOL),
+            "decode": _allclose("decode vs forward", _f32(dec),
+                                _f32(full[:, 1]), LM_DECODE_TOL)}
+
+
+def _lm_cpu_outputs(model, prompts, ids, tok, tgt):
+    """What the card-against-CPU holds compare, in float32 compute: the
+    prefill's last logits, ``LM_CPU_STEPS`` decode steps fed ``ids``
+    (the card's greedy ids) and the loss on (tok, tgt)."""
+    import torch
+    from repro_torch.serve.decode import serve_step
+    with torch.no_grad():
+        last, cache = model.prefill(prompts, LM_PROMPT + LM_CPU_STEPS)
+        out = {"prefill": _f32(last)}
+        for i in range(LM_CPU_STEPS):
+            logits, cache = serve_step(model, cache, ids[:, i],
+                                       LM_PROMPT + i)
+            out[f"decode_{i}"] = _f32(logits)
+        out["loss"] = float(model.loss_fn(tok, tgt)[0])
+    return out
+
+
+def _lm_run(name, module, layers, dev, card, rng):
+    """One config of the lm phase; its line."""
+    import copy
+
+    import torch
+    from repro_torch.models.params import sgd_step
+    from repro_torch.models.transformer.model import Transformer
+    from repro_torch.serve.decode import generate, serve_step
+
+    t_run = time.perf_counter()
+    cfg = _lm_config(module, layers)
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, seed=21, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    line = {"model": name, "card": card, "layers": cfg.n_layers,
+            "layers_cut_from": None if layers is None
+            else _lm_config(module, None).n_layers,
+            "params": n_params,
+            "param_gb": sum(p.numel() * p.element_size()
+                            for p in model.parameters()) / 1e9,
+            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+            "batch": LM_BATCH, "prompt": LM_PROMPT, "steps": LM_STEPS}
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev)
+    with torch.no_grad():
+        model.prefill(prompts, LM_PROMPT + LM_STEPS)
+        line["prefill_ms"] = [_sync_time(lambda: model.prefill(
+            prompts, LM_PROMPT + LM_STEPS))[1] for _ in range(LM_REPS)]
+        _, cache = model.prefill(prompts, LM_PROMPT + LM_STEPS)
+        tok0 = prompts[:, -1]
+        serve_step(model, cache, tok0, LM_PROMPT)
+        line["decode_step_ms"] = [_sync_time(lambda: serve_step(
+            model, cache, tok0, LM_PROMPT))[1] for _ in range(LM_REPS)]
+        t, t_end, per_kernel = _device_profile(
+            lambda: serve_step(model, cache, tok0, LM_PROMPT))
+        line["profiled_decode_step"] = dict(
+            wall_ms=(t_end - t) * 1e3,
+            **_busy((t_end - t) * 1e3, per_kernel, 5))
+        del cache
+    ids, gen_ms = _sync_time(lambda: generate(model, prompts, LM_STEPS))
+    line["generate_ms"] = gen_ms
+    line["greedy_tokens_per_s"] = LM_BATCH * LM_STEPS / (gen_ms / 1e3)
+    if ids.shape != (LM_BATCH, LM_STEPS) or \
+            not bool(((ids >= 0) & (ids < cfg.vocab)).all()):
+        raise AssertionError(f"{name}: generated ids {tuple(ids.shape)}")
+    line["sample_ids"] = ids[0, :8].tolist()
+    if cfg.layer_pattern != "local_global" and layers is None:
+        long = torch.as_tensor(rng.integers(0, cfg.vocab, (
+            LM_BATCH, LM_LONG)).astype(np.int32), device=dev)
+        with torch.no_grad():
+            model.prefill(long, LM_LONG)
+            line["long_prefill"] = dict(
+                shape=[LM_BATCH, LM_LONG], ms=[_sync_time(
+                    lambda: model.prefill(long, LM_LONG))[1]
+                    for _ in range(2)])
+        del long
+
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        LM_BATCH, LM_TRAIN_SEQ + 1)).astype(np.int32), device=dev)
+    tok, tgt = tok[:, :-1], tok[:, 1:]
+
+    def step():
+        loss, _ = model.loss_fn(tok, tgt)
+        loss.backward()
+        sgd_step(model, LM_LR)
+        return loss
+    step()
+    line["sgd_step_ms"], losses = [], []
+    for _ in range(LM_REPS):
+        loss, ms = _sync_time(step)
+        line["sgd_step_ms"].append(ms)
+        losses.append(float(loss.detach()))
+    t, t_end, per_kernel = _device_profile(step)
+    line["profiled_sgd_step"] = dict(
+        wall_ms=(t_end - t) * 1e3, **_busy((t_end - t) * 1e3, per_kernel, 5))
+    line["sgd_seq"], line["sgd_losses"] = LM_TRAIN_SEQ, losses
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: step losses {losses}")
+
+    line["self_check_max_abs_err"] = _lm_self_check(model, cfg, rng, dev)
+    if cfg.layer_pattern == "local_global":
+        line["past_window"] = dict(
+            window=cfg.window, prefill=GEMMA_LONG[0], forward=GEMMA_LONG[1],
+            max_abs_err=_lm_self_check(model, cfg, rng, dev, GEMMA_LONG))
+    if layers is None:
+        # float32 compute on the card against the same module on the CPU
+        model.cfg = cfg.scaled(dtype="float32")
+        with torch.no_grad():
+            ids32 = generate(model, prompts, LM_CPU_STEPS)
+        got = _lm_cpu_outputs(model, prompts, ids32, tok, tgt)
+        cpu_model = copy.deepcopy(model).cpu()
+        want = _lm_cpu_outputs(cpu_model, prompts.cpu(), ids32.cpu(),
+                               tok.cpu(), tgt.cpu())
+        line["cpu_holds_max_abs_err"] = {
+            k: _hold(f"{name} {k} (card vs CPU)", got[k], want[k], GNN_TOL)
+            for k in want}
+        del cpu_model
+    line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    line["wall_s"] = time.perf_counter() - t_run
+    del model
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_phase(dev, card):
+    """The transformer family at full width on the card (``LM_RUNS``):
+    prefill, decode steps, greedy tokens/s and an SGD step timed in the
+    config's dtype, device busy shares from a profiled decode step and SGD
+    step, self-consistency of prefill and decode against the forward in
+    float32 (gemma2 also past its window), tinyllama and qwen held
+    against the CPU; the example twin beside it."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(21)
+    procs = _start_examples(dev, LM_EXAMPLE)
+    try:
+        for name, module, layers in LM_RUNS:
+            emit("lm_model", **_lm_run(name, module, layers, dev, card, rng))
+    finally:
+        examples = _finish_examples(*procs)
+    emit("lm", card=card, models=[r[0] for r in LM_RUNS],
+         cuts={name: layers for name, _, layers in LM_RUNS if layers},
+         prefill_tolerance=LM_PREFILL_TOL, decode_tolerance=LM_DECODE_TOL,
+         cpu_tolerance=GNN_TOL, examples=examples,
+         wall_s=time.perf_counter() - t_phase)
+
+
 def _device_profile(run):
     """``run()`` under ``torch.profiler`` (CPU and CUDA activity), ended by
     a synchronize: (t_start, t_end, {kernel: (device us, calls)})."""
@@ -2646,6 +3039,8 @@ def main():
         launches[name] += c
     for name, c in gnn_phase(dev, card).items():
         launches[name] += c
+    mind_phase(dev, card)
+    lm_phase(dev, card)
 
     csrc = "src/repro_torch/kernels/csrc"
     meta = {

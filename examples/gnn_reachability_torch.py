@@ -19,7 +19,7 @@ from repro_torch.core import DBLIndex, make_graph
 from repro_torch.device import resolve_device
 from repro_torch.graphs.generators import power_law
 from repro_torch.graphs.sampler import CSR, reachability_filtered_sample
-from repro_torch.models.gnn.common import load_numpy_params, sgd_step
+from repro_torch.models.params import load_numpy_params, sgd_step
 from repro_torch.models.gnn.pna import PNA
 
 N, M, D_FEAT, N_CLASSES = 3_000, 18_000, 16, 8

@@ -1,8 +1,8 @@
 """Shared GNN utilities on tensors: masked segment aggregation, input
 embeddings, edge geometry, triplet construction (DimeNet), Legendre
-polynomials, the MLP block, and the bridge that carries a parameter tree of
-numpy arrays (nested dicts and lists, the reference's layout) into a module
-and its gradients back out.
+polynomials and the MLP block.  The bridge that carries a parameter tree of
+numpy arrays into a module and its gradients back out lives in
+``repro_torch.models.params`` and is re-exported here.
 
 A batch is a dict of tensors on one device: ``edge_index`` (2, m) int,
 ``edge_valid`` (m,) bool, ``node_feat`` (n, d_feat) float or None,
@@ -21,6 +21,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.graphs.segment import segment_reduce
+from repro_torch.models.params import (  # noqa: F401  (re-exported)
+    flatten_tree, grads_to_numpy, load_numpy_params, sgd_step)
 
 
 def masked_dst(edge_index, edge_valid, n):
@@ -210,61 +212,3 @@ class Potential(nn.Module):
             e = self.energy(batch)
             return torch.mean((e - batch["energy_target"]) ** 2), {}
         return cross_entropy(self.node_logits(batch), batch["labels"]), {}
-
-
-# ------------------------------------------- numpy parameter trees <-> module
-def flatten_tree(tree, prefix: str = "") -> dict:
-    """{dotted name: leaf} of a nested dict/list tree; a dict key (an int
-    irrep order included) becomes ``str(key)``, a list index its digits,
-    and ``None`` leaves are skipped.  The names are the module's
-    ``named_parameters`` names."""
-    if tree is None:
-        return {}
-    if isinstance(tree, dict):
-        items = ((str(k), v) for k, v in tree.items())
-    elif isinstance(tree, list):
-        items = ((str(i), v) for i, v in enumerate(tree))
-    else:
-        return {prefix[:-1]: tree}
-    out = {}
-    for k, v in items:
-        out.update(flatten_tree(v, f"{prefix}{k}."))
-    return out
-
-
-def load_numpy_params(module: nn.Module, tree) -> nn.Module:
-    """Copy a reference parameter tree of numpy arrays into ``module``'s
-    parameters (same names, shapes; values cast to each parameter's dtype
-    and device).  Every parameter must be given and every leaf used."""
-    flat = flatten_tree(tree)
-    params = dict(module.named_parameters())
-    if set(flat) != set(params):
-        raise KeyError(f"tree and module differ: only in the tree "
-                       f"{sorted(set(flat) - set(params))}, only in the "
-                       f"module {sorted(set(params) - set(flat))}")
-    with torch.no_grad():
-        for name, p in params.items():
-            val = torch.tensor(np.asarray(flat[name]))
-            if tuple(val.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {tuple(val.shape)} for a "
-                                 f"parameter of {tuple(p.shape)}")
-            p.copy_(val.to(dtype=p.dtype, device=p.device))
-    return module
-
-
-def grads_to_numpy(module: nn.Module) -> dict:
-    """{dotted name: gradient as numpy} under the names ``flatten_tree``
-    gives the reference's gradient tree; a parameter the loss did not reach
-    has a zero gradient, as ``jax.grad`` gives it."""
-    return {name: (np.zeros(tuple(p.shape), np.float32) if p.grad is None
-                   else p.grad.detach().float().cpu().numpy())
-            for name, p in module.named_parameters()}
-
-
-def sgd_step(module: nn.Module, lr: float):
-    """``w - lr * g`` on every parameter with a gradient, then clear them."""
-    with torch.no_grad():
-        for p in module.parameters():
-            if p.grad is not None:
-                p.sub_(lr * p.grad)
-    module.zero_grad(set_to_none=True)
