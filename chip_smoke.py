@@ -290,6 +290,29 @@ LM_REPS = 3
 #: decode steps held against the CPU, fed the card's greedy ids
 LM_CPU_STEPS = 4
 LM_EXAMPLE = {"serve_lm_torch": ("examples/serve_lm_torch.py",)}
+#: the train phase (``repro_torch.train``): tinyllama whole (AdamW on
+#: float32 weights) and gemma2 cut to 4 layers (Adafactor on bfloat16
+#: weights) at full width, bf16 compute, on lm_batches of 4 x 128 under a
+#: cosine schedule: warm-up and timed steps, steps at accum 2 (2 x 2 x
+#: 128), repetitions of the optimizer update alone; the kill-and-restart
+#: check on qwen1.5-0.5b whole in a subprocess with deterministic
+#: algorithms; the holds' tolerances: the reference test's for accum 2
+#: against 1 (tests/test_train_substrate.py), the CPU tests' for the
+#: update on the card against the CPU (float32 leaves as in
+#: tests/test_torch_train_optim.py, bfloat16 ones as in
+#: tests/test_torch_train_loop.py), that update at a rate of 1e-2
+TRAIN_RUNS = (("tinyllama-1.1b", "tinyllama_11b", None),
+              ("gemma2-27b", "gemma2_27b", 4))
+TRAIN_BATCH, TRAIN_SEQ = 4, 128
+TRAIN_SCHEDULE = dict(base_lr=1e-4, warmup=2, total=1_000)
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_ACCUM_STEPS = 2, 10, 3
+TRAIN_UPDATE_REPS = 3
+TRAIN_STEP_TOL = dict(rtol=2e-4, atol=2e-5)
+TRAIN_OPT_TOL = dict(rtol=1e-6, atol=1e-7)
+TRAIN_HOLD_LR = 1e-2
+RESTART_RUN = ("qwen1.5-0.5b", "qwen15_05b", None)
+RESTART_SCHEDULE = dict(base_lr=1e-3, warmup=2, total=100)
+TRAIN_CHILD_TIMEOUT_S = 600
 
 
 def emit(phase, **kw):
@@ -1281,6 +1304,13 @@ def il_packed_phase(dev, card):
     return launches
 
 
+def _host_time(fn):
+    """(fn(), ms) on the host clock alone: a run on the CPU."""
+    t = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t) * 1e3
+
+
 def _sync_time(fn):
     import torch
     torch.cuda.synchronize()
@@ -2129,9 +2159,10 @@ def _start_examples(dev, examples):
         for name, args in examples.items()}, time.perf_counter()
 
 
-def _finish_examples(procs, t):
+def _finish_examples(procs, t, endings=None):
     """Wait for the twins ``_start_examples`` started; each must exit 0
-    with ``OK`` as the last word.  {name: result}."""
+    with ``OK`` (or its entry of ``endings``) ending its last line.
+    {name: result}."""
     out = {}
     try:
         for name, proc in procs.items():
@@ -2139,7 +2170,7 @@ def _finish_examples(procs, t):
             stdout, stderr = proc.communicate(timeout=max(left, 1))
             lines = stdout.strip().splitlines()
             if proc.returncode != 0 or not lines or \
-                    not lines[-1].endswith("OK"):
+                    not lines[-1].endswith((endings or {}).get(name, "OK")):
                 raise AssertionError(
                     f"{name} failed (rc {proc.returncode}): "
                     f"{stdout[-1000:]} {stderr[-2000:]}")
@@ -2941,6 +2972,373 @@ def lm_phase(dev, card):
          wall_s=time.perf_counter() - t_phase)
 
 
+def _leaf_err(what, got, want, tol):
+    """Raise unless the leaves of two trees agree elementwise, compared
+    on ``got``'s device: |got - want| <= atol + rtol |want|, a bfloat16
+    leaf within two bfloat16 ulps of ``want`` plus half an ulp of the
+    leaf's largest (tests/test_torch_train_loop.py's rule: a weight
+    updated to near zero cancels, and its float32 error is an ulp of the
+    operands, not of the result); the largest absolute error."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    got, want = tree_leaves(got), tree_leaves(want)
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} leaves for {len(want)}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.to(g.device)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what} leaf {i}: {g.dtype} {g.shape} "
+                                 f"for {w.dtype} {w.shape}")
+        err = (g.float() - w.float()).abs()
+        if w.dtype == torch.bfloat16:
+            wf = w.float().abs()
+            bound = 2.0 ** -6 * wf + 2.0 ** -9 * wf.max()
+        else:
+            bound = tol["atol"] + tol["rtol"] * w.float().abs()
+        if not bool(torch.isfinite(g.float()).all()) or \
+                not bool((err <= bound).all()):
+            raise AssertionError(f"{what} leaf {i}: "
+                                 f"{int((err > bound).sum())} of "
+                                 f"{err.numel()} off, up to "
+                                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def _same_state(a, b):
+    """Bit for bit over every leaf of two states: {equal, leaves that
+    differ, largest absolute difference}."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    differ, worst = 0, 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        if isinstance(x, torch.Tensor):
+            same = torch.equal(x, y)
+            if not same:
+                worst = max(worst, float((x.float() - y.float()).abs()
+                                         .max()))
+        else:
+            same = np.array_equal(x, y)
+        differ += not same
+    return {"equal": differ == 0, "leaves_differing": differ,
+            "max_abs_diff": worst}
+
+
+def _update_hold(opt, params, opt_state, gen, dev):
+    """The optimizer update on the card against the same update on the
+    CPU, from the same parameters, state and random gradients (normal at
+    scale 1e-3, in each parameter's dtype), at ``TRAIN_OPT_TOL``, with a
+    rate (``TRAIN_HOLD_LR``) that moves every weight by far more than the
+    tolerance: the largest errors of the parameters and of the state
+    trees, and the CPU update's seconds."""
+    import torch
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.optim import OPTIMIZERS
+    _, upd = OPTIMIZERS[opt]
+    grads = tree_map(lambda p: (torch.randn(
+        p.shape, generator=gen, device=dev) * 1e-3).to(p.dtype), params)
+    got_p, got_s = upd(grads, opt_state, params, lr=TRAIN_HOLD_LR)
+
+    def cpu(tree):
+        return tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
+                        else x, tree)
+    t = time.perf_counter()
+    want_p, want_s = upd(cpu(grads), cpu(opt_state), cpu(params),
+                         lr=TRAIN_HOLD_LR)
+    cpu_s = time.perf_counter() - t
+    return {"params": _leaf_err(f"{opt} update params (card vs CPU)",
+                                got_p, want_p, TRAIN_OPT_TOL),
+            "state": _leaf_err(f"{opt} update state (card vs CPU)",
+                               got_s[:2], want_s[:2], TRAIN_OPT_TOL),
+            "cpu_update_s": cpu_s}
+
+
+def _accum_hold(model, cfg, state, sched, batch):
+    """In float32 compute: one step at accum 2 (2 x 2 x 128) against one
+    at accum 1 on the same 4 x 128 tokens from the same state, the
+    reference test's check and tolerance; the largest errors."""
+    from repro_torch.train.loop import lm_loss, make_train_step
+    model.cfg = cfg.scaled(dtype="float32")
+    try:
+        kw = dict(optimizer=cfg.optimizer, lr_schedule=sched, donate=False)
+        two = make_train_step(lm_loss(model), accum=2, **kw)
+        one = make_train_step(lm_loss(model), **kw)
+        a, ma = two(state, {k: v.reshape(2, TRAIN_BATCH // 2, -1)
+                            for k, v in batch.items()})
+        b, mb = one(state, batch)
+        return {"params": _leaf_err("accum 2 vs 1 params", a.params,
+                                    b.params, TRAIN_STEP_TOL),
+                "loss": abs(float(ma["loss"]) - float(mb["loss"])),
+                "lr": float(ma["lr"])}
+    finally:
+        model.cfg = cfg
+
+
+def _train_run(name, module, layers, dev, card, before_holds=None):
+    """One config of the train phase; its line.  ``before_holds`` runs
+    after the timed steps and before the holds."""
+    import statistics
+
+    import torch
+    from repro_torch.core._threefry import seed_key
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer.model import Transformer
+    from repro_torch.train.data import lm_batches
+    from repro_torch.train.loop import init_state, lm_loss, make_train_step
+    from repro_torch.train.optim import OPTIMIZERS, cosine_schedule
+
+    t_run = time.perf_counter()
+    cfg = _lm_config(module, layers)
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer(cfg, seed=22, device=dev)
+    state = init_state(seed_key(22), model.params, cfg.optimizer)
+    sched = cosine_schedule(**TRAIN_SCHEDULE)
+    step_fn = make_train_step(lm_loss(model), optimizer=cfg.optimizer,
+                              lr_schedule=sched)
+    data = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=22, device=dev)
+    line = {"model": name, "card": card, "layers": cfg.n_layers,
+            "layers_cut_from": None if layers is None
+            else _lm_config(module, None).n_layers,
+            "params": sum(p.numel() for p in model.parameters()),
+            "param_gb": sum(p.numel() * p.element_size()
+                            for p in model.parameters()) / 1e9,
+            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+            "optimizer": cfg.optimizer, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "schedule": TRAIN_SCHEDULE,
+            "warmup_steps": TRAIN_WARMUP}
+    losses, step_ms = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        batch = next(data)
+        (state, metrics), ms = _sync_time(lambda: step_fn(state, batch))
+        losses.append(float(metrics["loss"]))
+        if i >= TRAIN_WARMUP:
+            step_ms.append(ms)
+    line["step_ms"] = step_ms
+    line["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (
+        statistics.median(step_ms) / 1e3)
+    acc_fn = make_train_step(lm_loss(model), optimizer=cfg.optimizer,
+                             lr_schedule=sched, accum=2)
+    acc_data = lm_batches(cfg, TRAIN_BATCH // 2, TRAIN_SEQ, seed=23,
+                          accum=2, device=dev)
+    line["accum2_step_ms"] = []
+    for _ in range(TRAIN_ACCUM_STEPS):
+        batch = next(acc_data)
+        (state, metrics), ms = _sync_time(lambda: acc_fn(state, batch))
+        losses.append(float(metrics["loss"]))
+        line["accum2_step_ms"].append(ms)
+    batch = next(data)
+    box = {}
+    t, t_end, per_kernel = _device_profile(
+        lambda: box.update(out=step_fn(state, batch)))
+    state = box.pop("out")[0]
+    line["profiled_step"] = dict(wall_ms=(t_end - t) * 1e3,
+                                 **_busy((t_end - t) * 1e3, per_kernel, 5))
+    line["losses"] = losses
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: step losses {losses}")
+    if before_holds is not None:
+        before_holds()
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    holds = {}
+    if cfg.optimizer == "adamw":
+        holds["accum2_vs_accum1"] = _accum_hold(model, cfg, state, sched,
+                                                next(data))
+        holds["update_card_vs_cpu"] = _update_hold(
+            cfg.optimizer, state.params, state.opt_state, gen, dev)
+    else:   # the attention leaves: factored bf16 matrices, float32 norms
+        def attn(tree):
+            return {"layers": {"attn": tree["layers"]["attn"]}}
+        st = state.opt_state
+        holds["update_card_vs_cpu_attn"] = _update_hold(
+            cfg.optimizer, attn(state.params),
+            type(st)(attn(st[0]), attn(st[1]), st.step), gen, dev)
+    line["holds_max_abs_err"] = holds
+    line["hold_tolerances"] = dict(
+        step=TRAIN_STEP_TOL, update=TRAIN_OPT_TOL, update_lr=TRAIN_HOLD_LR,
+        bf16="2 ulps of the value + half an ulp of the leaf's largest")
+    torch.cuda.empty_cache()
+
+    _, upd = OPTIMIZERS[cfg.optimizer]
+    grads = tree_map(lambda p: (torch.randn(
+        p.shape, generator=gen, device=dev) * 1e-3).to(p.dtype),
+        state.params)
+    line["update_ms"] = []
+    for _ in range(TRAIN_UPDATE_REPS):
+        (_, opt_state), ms = _sync_time(lambda: upd(
+            grads, state.opt_state, state.params, lr=1e-4, inplace=True))
+        state = state._replace(opt_state=opt_state)
+        line["update_ms"].append(ms)
+    line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    line["wall_s"] = time.perf_counter() - t_run
+    del model, state, grads
+    torch.cuda.empty_cache()
+    return line
+
+
+def restart_child(argv):
+    """The kill-and-restart check at full width, in its own process:
+    ``python -c 'import sys, chip_smoke; chip_smoke.restart_child(
+    sys.argv[1:])' <out.json> <device> <config as JSON> <dir>``, with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before CUDA starts.  First the
+    same step from the same state twice, with the default algorithms and
+    with deterministic ones (the latter must give the same bits); then,
+    deterministic: 3 steps, ``save`` (async, then blocking, timed), 3
+    more; ``restore`` (timed) and the last 3 replayed, every leaf equal
+    to the first run's bit for bit (tests/test_train_substrate.py's
+    check).  Writes its line to ``<out.json>``."""
+    import os
+
+    import torch
+    from repro_torch.configs.base import MoEConfig, TransformerConfig
+    from repro_torch.core._threefry import seed_key
+    from repro_torch.models.transformer.model import Transformer
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.data import lm_batches
+    from repro_torch.train.loop import init_state, lm_loss, make_train_step
+    from repro_torch.train.optim import cosine_schedule
+
+    out_path, device, cfg_json, root = argv
+    dev = torch.device(device)
+    fields = json.loads(cfg_json)
+    if fields["moe"] is not None:
+        fields["moe"] = MoEConfig(**fields["moe"])
+    cfg = TransformerConfig(**fields)
+    timed = _sync_time if dev.type == "cuda" else _host_time
+    model = Transformer(cfg, seed=23, device=dev)
+    state = init_state(seed_key(7), model.params, cfg.optimizer)
+    step_fn = make_train_step(lm_loss(model), optimizer=cfg.optimizer,
+                              lr_schedule=cosine_schedule(**RESTART_SCHEDULE),
+                              donate=False)
+    data = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=3, device=dev)
+    batches = [next(data) for _ in range(6)]
+    res = {"model": cfg.name, "layers": cfg.n_layers,
+           "optimizer": cfg.optimizer, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "schedule": RESTART_SCHEDULE}
+    for mode in ("default", "deterministic"):
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        a, _ = step_fn(state, batches[0])
+        b, _ = step_fn(state, batches[0])
+        res[f"same_step_same_bits_{mode}"] = _same_state(a, b)
+        del a, b
+    if not res["same_step_same_bits_deterministic"]["equal"]:
+        raise AssertionError(f"a step is not reproducible under "
+                             f"deterministic algorithms: {res}")
+    s = state
+    for b in batches[:3]:
+        s, _ = step_fn(s, b)
+    ck = os.path.join(root, "restart")
+    writer, res["async_save_return_ms"] = timed(
+        lambda: ckpt.save(s, ck, 3, blocking=False))
+    t = time.perf_counter()
+    writer.join()
+    res["async_save_total_ms"] = res["async_save_return_ms"] + (
+        time.perf_counter() - t) * 1e3
+    shutil.rmtree(ck)
+    _, res["save_ms"] = timed(lambda: ckpt.save(s, ck, 3))
+    res["bytes_written"] = sum(
+        os.path.getsize(os.path.join(d, f))
+        for d, _, files in os.walk(ck) for f in files)
+    ref = s
+    for b in batches[3:]:
+        ref, _ = step_fn(ref, b)
+    restored, res["restore_ms"] = timed(lambda: ckpt.restore(ck, s))
+    if int(restored.step) != 3:
+        raise AssertionError(f"restored step {restored.step}")
+    s2 = restored
+    for b in batches[3:]:
+        s2, _ = step_fn(s2, b)
+    res["restart"] = _same_state(s2, ref)
+    shutil.rmtree(ck)
+    if not res["restart"]["equal"]:
+        raise AssertionError(f"restart is not bitwise: {res['restart']}")
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def _start_restart_child(dev, tmp):
+    """Start ``restart_child`` on ``RESTART_RUN``'s config: (proc,
+    out path)."""
+    import dataclasses
+    import os
+    _, module, layers = RESTART_RUN
+    cfg = _lm_config(module, layers)
+    out = os.path.join(tmp, "restart.json")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.restart_child(sys.argv[1:])", out, dev.type,
+         json.dumps(dataclasses.asdict(cfg)), tmp],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, out
+
+
+def train_phase(dev, card):
+    """The training path (``repro_torch.train``, ``launch/train.py``) at
+    full width on the card (``TRAIN_RUNS``): timed steps, accum-2 steps,
+    a profiled step and the optimizer update alone, the holds; the
+    kill-and-restart check on ``RESTART_RUN`` in a subprocess; the
+    example twin and the launcher (then ``--resume``) as subprocesses."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train_phase_")
+    started = {}
+
+    def start_children():
+        started["restart"] = _start_restart_child(dev, tmp)
+        started["examples"] = _start_examples(dev, {
+            "train_lm_torch": ("examples/train_lm_torch.py", "--steps",
+                               "50", "--ckpt-dir", f"{tmp}/twin"),
+            "launch_train": _launch_args(tmp)})
+    try:
+        for i, (name, module, layers) in enumerate(TRAIN_RUNS[::-1]):
+            emit("train_model", **_train_run(
+                name, module, layers, dev, card,
+                start_children if i == len(TRAIN_RUNS) - 1 else None))
+        examples = _finish_examples(*started.pop("examples"), endings={
+            "train_lm_torch": "final checkpoint at step 50",
+            "launch_train": "done at step 4"})
+        examples.update(_finish_examples(*_start_examples(dev, {
+            "launch_train_resume": _launch_args(tmp) + ("--resume",)}),
+            endings={"launch_train_resume": "done at step 8"}))
+        if "resumed from step 4" not in \
+                examples["launch_train_resume"]["last_lines"]:
+            raise AssertionError(f"the launcher did not resume: "
+                                 f"{examples['launch_train_resume']}")
+        proc, out = started.pop("restart")
+        stdout, stderr = proc.communicate(timeout=TRAIN_CHILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"the restart check failed (rc "
+                                 f"{proc.returncode}): {stdout[-1000:]} "
+                                 f"{stderr[-3000:]}")
+        with open(out) as f:
+            emit("train_restart", card=card, **json.load(f))
+        emit("train", card=card,
+             models=[r[0] for r in TRAIN_RUNS] + [RESTART_RUN[0]],
+             cuts={name: layers for name, _, layers in TRAIN_RUNS
+                   if layers}, examples=examples,
+             wall_s=time.perf_counter() - t_phase)
+    finally:
+        left = [started["restart"][0]] if "restart" in started else []
+        if "examples" in started:
+            left += list(started["examples"][0].values())
+        for proc in left:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _launch_args(tmp):
+    return ("-m", "repro_torch.launch.train", "--arch", "tinyllama-1.1b",
+            "--smoke", "--steps", "4", "--ckpt-dir", f"{tmp}/launch",
+            "--ckpt-every", "2")
+
+
 def _device_profile(run):
     """``run()`` under ``torch.profiler`` (CPU and CUDA activity), ended by
     a synchronize: (t_start, t_end, {kernel: (device us, calls)})."""
@@ -3041,6 +3439,7 @@ def main():
         launches[name] += c
     mind_phase(dev, card)
     lm_phase(dev, card)
+    train_phase(dev, card)
 
     csrc = "src/repro_torch/kernels/csrc"
     meta = {

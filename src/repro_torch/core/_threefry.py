@@ -1,5 +1,6 @@
 """The interval family's rank draw, ``jax.random.randint(PRNGKey(seed),
-(n, dim), lo, hi, int32)``, in numpy, bit for bit.
+(n, dim), lo, hi, int32)``, and the training step's ``fold_in``, in
+numpy, bit for bit.
 
 The reference draws its ranks with JAX's default PRNG: threefry2x32 with
 the partitionable key split and bit stream.  Same seed ⇒ same ranks ⇒
@@ -52,6 +53,15 @@ def seed_key(seed: int) -> tuple[np.uint32, np.uint32]:
     if not -2 ** 31 <= seed < 2 ** 31:
         raise ValueError(f"seed {seed} does not fit int32")
     return _U32(0), _U32(seed & 0xFFFFFFFF)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``: threefry
+    of the counter words ``(0, data)`` (``threefry_seed(data)``) under
+    ``key``; a (2,) uint32 key."""
+    o1, o2 = threefry2x32(key[0], key[1], np.zeros(1, _U32),
+                          np.array([int(data) & 0xFFFFFFFF], _U32))
+    return np.array([o1[0], o2[0]], _U32)
 
 
 def _counters(size: int):

@@ -2,7 +2,12 @@
 lists, the JAX reference's layout) and an ``nn.Module`` whose
 ``named_parameters()`` names are the tree's dotted paths: load a tree in,
 read the gradients out under the same names, and the plain SGD update the
-models' examples and smoke runs take."""
+models' examples and smoke runs take.
+
+``tree_leaves``, ``tree_map`` and ``tree_unflatten`` walk a tree in
+``jax.tree.flatten``'s order (a NamedTuple's fields in order, a dict's
+keys sorted, ``None`` an empty subtree), which the training state and its
+checkpoints keep; ``flatten_tree`` keeps insertion order, for names."""
 from __future__ import annotations
 
 import numpy as np
@@ -27,6 +32,52 @@ def flatten_tree(tree, prefix: str = "") -> dict:
     for k, v in items:
         out.update(flatten_tree(v, f"{prefix}{k}."))
     return out
+
+
+def _children(tree):
+    """(children, rebuild) of an inner node, or None for a leaf."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        return [tree[k] for k in keys], lambda xs: dict(zip(keys, xs))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(tree), lambda xs: type(tree)(*xs)
+    if isinstance(tree, (list, tuple)):
+        return list(tree), type(tree)
+    return None
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in ``jax.tree.leaves``' order."""
+    if tree is None:
+        return []
+    node = _children(tree)
+    if node is None:
+        return [tree]
+    return [leaf for child in node[0] for leaf in tree_leaves(child)]
+
+
+def tree_map(fn, tree, *rest):
+    """``jax.tree.map``: ``fn`` over the leaves of ``tree`` and the
+    same-shaped ``rest``, rebuilt as ``tree``."""
+    if tree is None:
+        return None
+    node = _children(tree)
+    if node is None:
+        return fn(tree, *rest)
+    others = [_children(r)[0] for r in rest]
+    return node[1]([tree_map(fn, c, *(o[i] for o in others))
+                    for i, c in enumerate(node[0])])
+
+
+def tree_unflatten(like, leaves):
+    """The tree shaped as ``like`` holding ``leaves`` (in
+    ``tree_leaves``' order); every leaf must be used."""
+    leaves = list(leaves)
+    n = len(tree_leaves(like))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a tree of {n}")
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def load_numpy_params(module: nn.Module, tree) -> nn.Module:

@@ -88,3 +88,26 @@ def test_default_device_raises_without_cuda(monkeypatch):
         select_backend("torch", torch.device("cuda"))
     with pytest.raises(ValueError):
         select_backend("cuda", torch.device("cpu"))
+    # the training path: data pipelines, a Transformer-backed state, the
+    # launcher
+    from repro_torch.configs import mind, tinyllama_11b
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models.transformer.model import Transformer
+    from repro_torch.train import data
+    for batches in (lambda **kw: data.lm_batches(tinyllama_11b.SMOKE, 2, 4,
+                                                 **kw),
+                    lambda **kw: data.recsys_batches(
+                        mind.CONFIG.scaled(n_items=50), 2, **kw),
+                    lambda **kw: data.gnn_full_batches(8, 16, 2, 2, **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            next(batches())
+        assert next(batches(device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Transformer(tinyllama_11b.SMOKE)
+    from repro_torch.train.loop import init_state
+    model = Transformer(tinyllama_11b.SMOKE, device="cpu")
+    state = init_state((0, 1), model.params)
+    assert all(t.device.type == "cpu" for t in state.opt_state.m.values()
+               if isinstance(t, torch.Tensor))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--arch", "tinyllama-1.1b", "--smoke", "--steps", "1"])
