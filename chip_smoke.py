@@ -171,7 +171,41 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    The twin ``examples/serve_lm_torch.py`` runs beside it on the card and
    must end in ``OK``.  One ``lm_model`` line a config, one ``lm`` line.
    No kernel of the port's is on this path.
-13. the ``kernels`` summary line, then the ``ok`` line last.
+13. train: the training path (``repro_torch.train``, ``launch/train.py``)
+   at full width (``TRAIN_RUNS``): timed steps, accum-2 steps, a profiled
+   step, the optimizer update alone and the holds; the kill-and-restart
+   check on qwen1.5-0.5b in a subprocess; the example twin and the
+   launcher (then ``--resume``).  Lines ``train_model``, ``train_restart``,
+   ``train``.
+14. moe_sharded and train_sharded (``mesh_phases``): the expert-parallel
+   MoE (``models.transformer.moe_sharded``) at moonshot-v1-16b-a3b's full
+   MoE width (64 experts, d_model 2048, top-6, d_ff 1408, 2 shared
+   experts, bf16 weights) over 4 096 tokens without drops, first as a
+   world of one over NCCL in this process (mesh (1, 1)), then over 4 gloo
+   ranks sharing the card on meshes (2, 2) and (1, 4) (NCCL refuses two
+   ranks on one device; a refusal of gloo's is printed and fails the
+   run).  Each rank holds its token block and its experts: the forward,
+   the forward and backward and the all-to-all alone are timed in bf16;
+   in float32 with aux weight 0, ``y`` and every gradient (summed over
+   the ranks) are held against the local ``moe_ffn`` on the whole batch
+   (``MOE_Y_TOL``, ``MOE_GRAD_TOL``), and ``aux`` against the per-cell
+   estimator.  The sharded train state
+   (``make_train_step(state_shardings=)``): qwen1.5-0.5b whole with AdamW
+   on mesh (1, 1), two steps equal to the unsharded step's bit for bit
+   under deterministic algorithms; moonshot cut to 2 layers
+   (``moe_impl="shard_map"``, Adafactor, float32 compute and weights, no
+   drops, aux weight 0) on (2, 2) over the 4 gloo ranks, two steps on
+   4 x 128 tokens; after the first, the gathered gradients held against
+   the single-process step's on the card (its tokens routed to the
+   sharded run's experts), and the gathered parameters against the
+   single-process update by those gradients (``train_sharded_run`` says
+   why not against its parameters).  Beside them the dry run
+   (``python -m repro_torch.launch.dryrun --all``) on the host.  Lines
+   ``moe_sharded_world1``, ``moe_sharded_4rank`` (one a layout),
+   ``moe_sharded``, ``train_sharded_world1``, ``train_sharded_4rank``,
+   ``dryrun``, ``train_sharded``.  No kernel of the port's is on this
+   path.
+15. the ``kernels`` summary line, then the ``ok`` line last.
 """
 import json
 import re
@@ -313,6 +347,34 @@ TRAIN_HOLD_LR = 1e-2
 RESTART_RUN = ("qwen1.5-0.5b", "qwen15_05b", None)
 RESTART_SCHEDULE = dict(base_lr=1e-3, warmup=2, total=100)
 TRAIN_CHILD_TIMEOUT_S = 600
+#: moe_sharded and train_sharded: moonshot-v1-16b-a3b's MoE at full width
+#: (64 experts, d_model 2048, top-6, d_ff 1408, 2 shared experts, bf16
+#: weights) over 4 096 tokens, no drops (capacity factor 2 E / K), on mesh
+#: (1, 1) in a world of one and on (2, 2) and (1, 4) over 4 gloo ranks;
+#: the model cut from 48 layers to 2, float32 compute and weights, for
+#: the sharded train steps on (2, 2) (4 x 128 tokens, a rate of 1e-2 from
+#: the first step, two steps, the first held); qwen1.5-0.5b whole for the
+#: bitwise check on (1, 1).  The MoE holds run in float32:
+#: |got - want| <= rtol |want| + frac max|want| as (rtol, frac), y at the
+#: CPU test's rtol and the gradients at its rtol 5e-3.
+MESH_RUN = dict(module="moonshot_v1_16b_a3b", moe_tokens=4_096,
+                train_layers=2, bitwise_module="qwen15_05b", smoke=False)
+MOE_LAYOUTS = ((2, 2), (1, 4))
+MOE_REPS = 2
+MOE_Y_TOL = (2e-4, 1e-5)
+MOE_GRAD_TOL = (5e-3, 1e-4)
+TRAIN_SHARDED_SCHEDULE = dict(base_lr=1e-2, warmup=0, total=50)
+TRAIN_SHARDED_STEPS = 2
+#: the sharded step's gradients against the single-process step's,
+#: |got - want| <= rtol |want| + frac max|want| as (rtol, frac): float32
+#: sums in another order (a gradient that cancels keeps the rounding of its
+#: terms, a fraction of the leaf's largest)
+TRAIN_SHARDED_GRAD_TOL = (1e-3, 1e-5)
+#: a token may route to other experts in the single-process step only
+#: where its top k + 1 router probabilities sit this close to a tie
+ROUTING_TIE = 1e-5
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 300
 
 
 def emit(phase, **kw):
@@ -3333,6 +3395,652 @@ def train_phase(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------- moe_sharded, train_sharded
+def _mesh_config(run, module, layers=None):
+    """``module``'s CONFIG (or SMOKE under ``run["smoke"]``, the CPU
+    rehearsal), cut to ``layers`` layers."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.configs.{module}")
+    cfg = mod.SMOKE if run["smoke"] else mod.CONFIG
+    return cfg if layers is None else cfg.scaled(n_layers=layers)
+
+
+def _clock(dev, fn):
+    return _sync_time(fn) if dev.type == "cuda" else _host_time(fn)
+
+
+def _peak_gb(dev):
+    import torch
+    if dev.type != "cuda":
+        return "not measured"
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _reset_peak(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _rel_hold(what, got, want, tol):
+    """Raise unless |got - want| <= rtol |want| + frac max|want|
+    elementwise (``tol = (rtol, frac)``); the largest absolute error."""
+    import torch
+    got, want = got.detach().float(), want.detach().float().to(got.device)
+    rtol, frac = tol
+    err = (got - want).abs()
+    bound = rtol * want.abs() + frac * want.abs().max()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+            or not bool((err <= bound).all()):
+        raise AssertionError(f"{what}: {int((err > bound).sum())} of "
+                             f"{err.numel()} off, up to {float(err.max())}")
+    return float(err.max())
+
+
+def moe_sharded_run(mesh, dev, run, rank):
+    """One rank's part of the ``moe_sharded`` phase on ``mesh``: the MoE of
+    ``run["module"]`` at full width (bf16 weights drawn from a seed on
+    every rank, each keeping its experts; ``run["moe_tokens"]`` tokens of
+    which the rank holds block ``i n_tp + j``) in the no-drop regime.
+    Times (bf16, aux weight as configured): the forward, the forward and
+    backward of the rank's share of ``mean(y^2) + aux``, and the
+    all-to-all of the rank's buffer alone.  Holds, in float32 with aux
+    weight 0: ``y`` and every gradient (summed over the ranks as
+    ``make_train_step(state_shardings=)`` sums them) against the local
+    ``moe_ffn`` on the whole batch, which each rank computes in turn;
+    ``aux`` (bf16 run) against the per-cell estimator from ``route``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.sharding import Layout, P
+    from repro_torch.models.transformer.model import _act
+    from repro_torch.models.transformer.moe import (_counts, init_moe_params,
+                                                    moe_ffn, route)
+    from repro_torch.models.transformer.moe_sharded import (
+        exchange, local_experts, moe_ffn_sharded)
+
+    cfg = _no_drop(_mesh_config(run, run["module"]))
+    moe, d, act = cfg.moe, cfg.d_model, _act(cfg.act)
+    e, k, t = moe.n_experts, moe.top_k, run["moe_tokens"]
+    n, n_tp = mesh.size, mesh.sizes["model"]
+    cell = mesh.coord("data") * n_tp + mesh.coord("model")
+    blk = t // n
+    experts = ("w1", "w2", "w3")
+    whole = Layout(mesh, P())
+
+    def draw():
+        gen = torch.Generator(device=dev).manual_seed(16)
+        p = init_moe_params(gen, d, moe, torch.bfloat16, device=dev)
+        x = (torch.randn(t, d, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        return p, x
+
+    def share_grads(p, xb, moe_):
+        leaves = {name: v.detach().requires_grad_() for name, v in p.items()}
+        y, aux = moe_ffn_sharded(leaves, xb, moe_, act, mesh=mesh,
+                                 dp_axes=("data",), tp_axis="model")
+        share = (y.float() ** 2).sum() / (t * d) + aux / n
+        g = torch.autograd.grad(share, list(leaves.values()))
+        return y.detach(), aux.detach(), dict(zip(leaves, g))
+
+    t_run = time.perf_counter()
+    _reset_peak(dev)
+    full, x = draw()
+    local = {name: local_experts(v, e, mesh, "model").clone()
+             if name in experts else v for name, v in full.items()}
+    del full
+    xb = x[cell * blk:(cell + 1) * blk]
+    res = {"rank": rank, "coords": list(mesh.coords),
+           "tokens_per_rank": blk, "experts_per_rank": e // n_tp}
+
+    def fwd():
+        with torch.no_grad():
+            return moe_ffn_sharded(local, xb, moe, act, mesh=mesh,
+                                   dp_axes=("data",), tp_axis="model")
+    fwd()
+    res["fwd_ms"] = [_clock(dev, fwd)[1] for _ in range(MOE_REPS)]
+    share_grads(local, xb, moe)
+    res["fwd_bwd_ms"] = []
+    for _ in range(MOE_REPS):
+        (_, aux, _), ms = _clock(dev, lambda: share_grads(local, xb, moe))
+        res["fwd_bwd_ms"].append(ms)
+    c = max(4, int(blk * k / e * moe.capacity_factor))
+    buf = torch.zeros(n_tp, e // n_tp, c, d, dtype=torch.bfloat16,
+                      device=dev)
+    res["capacity_per_rank"] = c
+    res["a2a_bytes_per_rank"] = buf.numel() * 2 * (n_tp - 1) // n_tp
+    res["a2a_per_fwd_bwd"] = 4 if n_tp > 1 else 0
+    res["a2a_ms"] = [_clock(dev, lambda: exchange(buf, mesh, "model"))[1]
+                     for _ in range(MOE_REPS)] if n_tp > 1 else []
+    del buf
+    cells_aux = []
+    for cb in x.float().chunk(n):
+        r = route(local, cb, moe, capacity=max(4, int(blk * k / e
+                                                      * moe.capacity_factor)))
+        f_e = _counts(r["se"], e).to(torch.float32) / (blk * k)
+        cells_aux.append(moe.router_aux_weight * e
+                         * torch.sum(f_e * r["probs"].mean(dim=0)))
+    want_aux = torch.stack(cells_aux).mean()
+    res["aux"] = float(aux)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+    hold_moe = dataclasses.replace(moe, router_aux_weight=0.0)
+    y, _, g = share_grads({name: v.float() for name, v in local.items()},
+                          xb.float(), hold_moe)
+    for name in g:
+        g[name] = whole.psum(g[name], ("data",) if name in experts
+                             else mesh.axis_names)
+    res["peak_memory_gb"] = _peak_gb(dev)
+    del local
+    _reset_peak(dev)
+    holds = {}
+    for turn in range(n):
+        if turn == rank:
+            ref, _ = draw()
+            ref = {name: v.float().requires_grad_() for name, v in
+                   ref.items()}
+            y_ref, _ = moe_ffn(ref, x.float(), hold_moe, act, capacity=t)
+            loss = (y_ref ** 2).sum() / (t * d)
+            g_ref = dict(zip(ref, torch.autograd.grad(loss,
+                                                      list(ref.values()))))
+            holds["y"] = _rel_hold("moe y", y, y_ref[cell * blk:
+                                                     (cell + 1) * blk],
+                                   MOE_Y_TOL)
+            for name, want in g_ref.items():
+                if name in experts:
+                    want = local_experts(want, e, mesh, "model")
+                holds[f"grad_{name}"] = _rel_hold(f"moe grad {name}",
+                                                  g[name], want,
+                                                  MOE_GRAD_TOL)
+            del ref, y_ref, g_ref, loss
+            _reset_peak(dev)
+        if n > 1:
+            dist.barrier()
+    res["holds_max_abs_err"] = holds
+    _reset_peak(dev)
+    res["wall_s"] = time.perf_counter() - t_run
+    return res
+
+
+def _routing(probs, eidx, c):
+    """``moe.route``'s slots for the given top-k experts ``eidx`` (T, K)
+    instead of its own ``topk``: the gates read from ``probs``."""
+    import torch
+    from repro_torch.models.transformer.moe import _counts
+    t, k = eidx.shape
+    gates = probs.gather(1, eidx)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    slot_e = eidx.reshape(-1)
+    order = torch.argsort(slot_e, stable=True)
+    se = slot_e[order]
+    counts = _counts(se, probs.shape[1])
+    pos = torch.arange(t * k, device=probs.device) - (
+        torch.cumsum(counts, 0) - counts)[se]
+    return dict(c=c, probs=probs, order=order, se=se, tok=order // k,
+                gate=gates.reshape(-1)[order], pos=pos, keep=pos < c)
+
+
+def _top_margin(probs, k):
+    """Per token: the smallest gap between neighbours among its k + 1
+    largest router probabilities (how near its top k is to a tie)."""
+    import torch
+    top = torch.topk(probs, k + 1).values
+    return (top[:, :-1] - top[:, 1:]).min(dim=1).values
+
+
+def _capturing(opt, box):
+    """``OPTIMIZERS[opt]`` with an update that first keeps its gradients
+    in ``box`` (once)."""
+    from repro_torch.train.optim import OPTIMIZERS
+    init, update = OPTIMIZERS[opt]
+
+    def capture(grads, *args, **kw):
+        if not box:
+            box.append(grads)
+        return update(grads, *args, **kw)
+    return init, capture
+
+
+def train_sharded_run(mesh, dev, run, rank):
+    """One rank's part of the ``train_sharded`` phase on a (2, 2) mesh:
+    ``run["module"]`` at full width cut to ``run["train_layers"]`` layers,
+    ``moe_impl="shard_map"``, no drops, aux weight 0, float32 compute and
+    weights, its Adafactor; the state drawn from a seed, each rank keeping
+    its shards; ``TRAIN_SHARDED_STEPS`` steps on 4 x 128 tokens, each rank
+    feeding its data block.  Held on rank 0, on the same card, after the
+    first step: the gradients the sharded step reduced against the
+    single-process step's (``TRAIN_SHARDED_GRAD_TOL``), and the sharded
+    step's parameters against the single-process Adafactor update of the
+    same state by those gradients (``TRAIN_STEP_TOL``).
+
+    Why float32 weights (the config stores bfloat16): a bfloat16 gradient
+    is each rank's partial rounded to bfloat16, then summed, and where the
+    partials cancel that differs from the single process's one rounding
+    by more than the bfloat16 rule (the CPU rehearsal at SMOKE size: 1 of
+    16 384 embedding gradients off by 3.9e-3).  Why not the
+    single-process step's parameters: Adafactor's first update of an
+    expert that few tokens reach (a gradient of rank one or two) is the
+    sign of each element, so an element whose gradient is rounding noise
+    moves by a whole rate either way (measured: 42 of 369 M ``w2``
+    weights, up to 0.18 of the rate), and an expert that no token reaches
+    gets a router column of noise normalized to a full update.
+    Why the routing is replayed: top-k routing is not continuous, and the
+    ranks' products run on other shapes, so logits an ulp apart can swap a
+    token's experts at a near tie.  The sharded run's first forward
+    records each layer's top-k experts and the single-process step routes
+    its tokens to them; a token whose own top k differs must sit within
+    ``ROUTING_TIE`` of a tie, and the line counts them."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core._threefry import seed_key
+    from repro_torch.launch.cells import lm_constrain
+    from repro_torch.launch.sharding import (lm_batch_shardings,
+                                             lm_state_shardings, shard_tree,
+                                             tree_map_with_path)
+    from repro_torch.models.params import (tree_leaves, tree_map,
+                                           tree_unflatten)
+    from repro_torch.models.transformer import moe as moe_mod
+    from repro_torch.models.transformer import moe_sharded as sharded_mod
+    from repro_torch.models.transformer.model import Transformer
+    from repro_torch.train.data import lm_batches
+    from repro_torch.train.loop import init_state, lm_loss, make_train_step
+    from repro_torch.train.optim import OPTIMIZERS, cosine_schedule
+
+    cfg = _no_drop(_mesh_config(run, run["module"], run["train_layers"]))
+    cfg = cfg.scaled(moe_impl="shard_map", dtype="float32",
+                     param_dtype="float32",
+                     moe=dataclasses.replace(cfg.moe, router_aux_weight=0.0))
+    sched = cosine_schedule(**TRAIN_SHARDED_SCHEDULE)
+    t_run = time.perf_counter()
+
+    def whole_state():
+        model = Transformer(cfg, seed=22, device=dev)
+        return model, init_state(seed_key(22), model.params, cfg.optimizer)
+
+    def stepper(loss_fn, box, **kw):
+        """``make_train_step`` whose update keeps its first gradients."""
+        saved = OPTIMIZERS[cfg.optimizer]
+        OPTIMIZERS[cfg.optimizer] = _capturing(cfg.optimizer, box)
+        try:
+            return make_train_step(loss_fn, optimizer=cfg.optimizer,
+                                   lr_schedule=sched, **kw)
+        finally:
+            OPTIMIZERS[cfg.optimizer] = saved
+    _reset_peak(dev)
+    model, state = whole_state()
+    lays = lm_state_shardings(state, mesh, moe_impl=cfg.moe_impl)
+    shards = shard_tree(state, lays)
+    del model, state
+    _reset_peak(dev)
+    seen = []
+    step = stepper(lm_loss(Transformer(cfg, device="meta"),
+                           lm_constrain(cfg, mesh)), seen,
+                   state_shardings=lays)
+    data = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=22, device=dev)
+    batches = [next(data) for _ in range(TRAIN_SHARDED_STEPS)]
+    rows = lm_batch_shardings(mesh, kind="train")
+    res = {"rank": rank, "coords": list(mesh.coords), "step_ms": [],
+           "losses": []}
+    route, k, n_layers = sharded_mod.route, cfg.moe.top_k, cfg.n_layers
+    chosen = []
+
+    def recording(params, x, moe, capacity=None):
+        r = route(params, x, moe, capacity)
+        if len(chosen) < n_layers:   # the first forward, layer by layer
+            chosen.append(torch.topk(r["probs"].detach(), k).indices)
+        return r
+
+    def whole(tree):
+        """The whole tree from every rank's shards, on rank 0's host."""
+        out = [lay.gather(x).to("cpu", copy=True) for lay, x in
+               zip(tree_leaves(lays.params), tree_leaves(tree))]
+        return tree_unflatten(tree, out) if rank == 0 else None
+    for i, b in enumerate(batches):
+        sharded_mod.route = recording if i == 0 else route
+        try:
+            (shards, m), ms = _clock(dev, lambda: step(
+                shards, {key: rows.shard(v) for key, v in b.items()}))
+        finally:
+            sharded_mod.route = route
+        res["step_ms"].append(ms)
+        res["losses"].append(float(m["loss"]))
+        if i == 0:
+            got_params, got_grads = whole(shards.params), whole(seen.pop())
+    p_lays, p_shards = tree_leaves(lays.params), tree_leaves(shards.params)
+    gather = reduce = 0
+    for lay, s in zip(p_lays, p_shards):
+        comp = 1
+        for dim in range(s.ndim):
+            comp *= s.shape[dim] * (lay.parts(dim)
+                                    if dim in lay._gathered_dims(s.ndim)
+                                    else 1)
+        gather += (comp - s.numel()) * s.element_size()
+        reduce += comp * s.element_size() * len(lay.compute_replicas())
+    res["gather_bytes_per_step"] = gather
+    res["reduce_bytes_per_step"] = reduce
+    res["shard_bytes"] = sum(s.numel() * s.element_size()
+                             for s in tree_leaves(shards)
+                             if isinstance(s, torch.Tensor))
+    res["peak_memory_gb"] = _peak_gb(dev)
+    del shards, step
+    # every rank's block of each layer's routing, in token order (rank r
+    # holds token block r)
+    routed = []
+    for e in chosen:
+        parts = [torch.empty_like(e) for _ in range(mesh.size)]
+        dist.all_gather(parts, e.contiguous())
+        routed.append(torch.cat(parts))
+    _reset_peak(dev)                  # rank 0's single step needs the room
+    if mesh.size > 1:
+        dist.barrier()
+    if rank == 0:
+        model, state = whole_state()
+        stacked = state.params["layers"]["mlp"]["router"]
+        own_route = moe_mod.route
+        ties = {"tokens_routed_otherwise": {}, "largest_tie_margin": 0.0}
+
+        def replaying(params, x, moe, capacity=None):
+            layer = next(i for i in range(n_layers)
+                         if torch.equal(params["router"], stacked[i]))
+            r = own_route(params, x, moe, capacity)
+            want = routed[layer]
+            probs = r["probs"].detach()
+            differ = (torch.topk(probs, k).indices != want).any(dim=1)
+            ties["tokens_routed_otherwise"][layer] = int(differ.sum())
+            if bool(differ.any()):
+                margin = float(_top_margin(probs, k)[differ].max())
+                if margin >= ROUTING_TIE:
+                    raise AssertionError(
+                        f"layer {layer}: the single-process step routes "
+                        f"{int(differ.sum())} tokens otherwise, at a top-k "
+                        f"margin of up to {margin}")
+                ties["largest_tie_margin"] = max(
+                    ties["largest_tie_margin"], margin)
+            return _routing(r["probs"], want, r["c"])
+        single_grads = []
+        single = stepper(lm_loss(model), single_grads)
+        moe_mod.route = replaying
+        try:
+            single(state, batches[0])
+        finally:
+            moe_mod.route = own_route
+        res["routing_ties"] = ties
+        del model, state
+        names = []
+        tree_map_with_path(lambda p, _: names.append(p), got_grads)
+        res["grad_max_abs_err"] = {
+            name: _rel_hold(f"train_sharded gradient {name}", g, w,
+                            TRAIN_SHARDED_GRAD_TOL)
+            for name, g, w in zip(names, tree_leaves(single_grads.pop()),
+                                  tree_leaves(got_grads))}
+        _reset_peak(dev)
+        _, state = whole_state()
+        _, update = OPTIMIZERS[cfg.optimizer]
+        want, _ = update(tree_map(lambda g: g.to(dev), got_grads),
+                         state.opt_state, state.params, lr=sched(0))
+        del state
+        res["hold_max_abs_err"] = _leaf_err(
+            "train_sharded params after a step (the single-process update "
+            "by the sharded gradients vs 2x2)", want, got_params,
+            TRAIN_STEP_TOL)
+    del got_params, got_grads
+    if mesh.size > 1:
+        dist.barrier()
+    res["wall_s"] = time.perf_counter() - t_run
+    return res
+
+
+def bitwise_run(mesh, dev, run):
+    """``make_train_step(state_shardings=)`` on a mesh of one rank against
+    the unsharded step: ``run["bitwise_module"]`` whole, its AdamW,
+    ``TRAIN_SHARDED_STEPS`` steps from one state under deterministic
+    algorithms; every leaf equal bit for bit."""
+    import torch
+    from repro_torch.core._threefry import seed_key
+    from repro_torch.launch.sharding import lm_state_shardings
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer.model import Transformer
+    from repro_torch.train.data import lm_batches
+    from repro_torch.train.loop import init_state, lm_loss, make_train_step
+    from repro_torch.train.optim import cosine_schedule
+
+    cfg = _mesh_config(run, run["bitwise_module"])
+    _reset_peak(dev)
+    model = Transformer(cfg, seed=22, device=dev)
+    start = init_state(seed_key(22), model.params, cfg.optimizer)
+    data = lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=22, device=dev)
+    batches = [next(data) for _ in range(TRAIN_SHARDED_STEPS)]
+    res = {"model": cfg.name, "layers": cfg.n_layers,
+           "optimizer": cfg.optimizer}
+    states = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, lays in (("unsharded", None), ("sharded_1x1",
+                           lm_state_shardings(start, mesh))):
+            step = make_train_step(
+                lm_loss(model), optimizer=cfg.optimizer, donate=False,
+                lr_schedule=cosine_schedule(**TRAIN_SHARDED_SCHEDULE),
+                state_shardings=lays)
+            s = tree_map(lambda v: v.clone() if isinstance(v, torch.Tensor)
+                         else v, start)
+            res[f"{name}_step_ms"] = []
+            for b in batches:
+                (s, _), ms = _clock(dev, lambda: step(s, b))
+                res[f"{name}_step_ms"].append(ms)
+            states[name] = s
+    finally:
+        torch.use_deterministic_algorithms(False)
+    res["bitwise"] = _same_state(states["sharded_1x1"], states["unsharded"])
+    if not res["bitwise"]["equal"]:
+        raise AssertionError(f"the sharded step on mesh (1, 1) is not the "
+                             f"unsharded one: {res['bitwise']}")
+    res["peak_memory_gb"] = _peak_gb(dev)
+    return res
+
+
+def _gloo_probe(dev, world, rank):
+    """None if gloo carries every collective the mesh phases use on
+    ``dev`` tensors (bfloat16 and float32), else the refusal."""
+    import torch
+    import torch.distributed as dist
+    try:
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.arange(2 * world, device=dev).to(dt)
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x)
+            want = torch.tensor([2 * rank, 2 * rank + 1] * world).to(dt)
+            parts = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(parts, x)
+            s = torch.ones(3, device=dev, dtype=dt)
+            dist.all_reduce(s)
+            if not torch.equal(y.cpu(), want) or \
+                    not all(torch.equal(p, x) for p in parts) or \
+                    not bool((s == world).all()):
+                return f"gloo gave wrong {dt} results on {dev} tensors"
+    except (RuntimeError, ValueError) as err:   # the refusal is the result
+        return f"{type(err).__name__}: {err}"
+    return None
+
+
+def _mesh_rank(rank, world, store_path, out_dir, device, run):
+    """One gloo rank of the 4-rank world on the one card: the probe, the
+    sharded MoE on each of ``MOE_LAYOUTS``, the sharded train step on
+    (2, 2)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh_compat
+    import os
+    # four processes share the card: no allocator segment left stranded
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        dev = torch.device(device)
+        if dev.type == "cpu":
+            torch.set_num_threads(1)
+        err = _gloo_probe(dev, world, rank)
+        ok = torch.tensor([0 if err else 1])
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+        result = {"rank": rank}
+        if int(ok) == 0:
+            result["refused"] = err or "another rank's probe failed"
+        else:
+            try:
+                result["moe"] = {
+                    f"{a}x{b}": moe_sharded_run(make_mesh_compat(
+                        (a, b), ("data", "model"), device=device), dev, run,
+                        rank) for a, b in MOE_LAYOUTS}
+                result["train"] = train_sharded_run(make_mesh_compat(
+                    (2, 2), ("data", "model"), device=device), dev, run,
+                    rank)
+            except Exception:           # every rank's traceback is kept
+                import traceback
+                result["error"] = traceback.format_exc()
+                raise
+            finally:
+                (Path(out_dir) / f"mesh_rank{rank}.json").write_text(
+                    json.dumps(result))
+            return
+        (Path(out_dir) / f"mesh_rank{rank}.json").write_text(
+            json.dumps(result))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phases(dev, card):
+    """The ``moe_sharded`` and ``train_sharded`` phases: the sharded MoE
+    (``models.transformer.moe_sharded``) and the sharded train state
+    (``make_train_step(state_shardings=)``, ``launch.sharding``) in a
+    world of one (NCCL on the card) in this process, then over 4 gloo
+    ranks sharing the card; the dry run (``launch.dryrun --all``) on the
+    host beside them."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+    from repro_torch.launch.mesh import make_mesh_compat
+    from torch.multiprocessing.spawn import ProcessException
+
+    t_phase = time.perf_counter()
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="mesh_", dir=build_dir))
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", str(work / "dryrun")], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=f"file://{work}/one",
+                                rank=0, world_size=1,
+                                timeout=timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            mesh = make_mesh_compat((1, 1), ("data", "model"),
+                                    device=str(dev))
+            moe1 = moe_sharded_run(mesh, dev, MESH_RUN, 0)
+            t_moe1 = time.perf_counter() - t_phase
+            bit1 = bitwise_run(mesh, dev, MESH_RUN)
+        finally:
+            dist.destroy_process_group()
+        t_world1 = time.perf_counter() - t_phase
+        emit("moe_sharded_world1", backend=backend, layout=[1, 1],
+             card=card, **moe1)
+        emit("train_sharded_world1", backend=backend, layout=[1, 1],
+             card=card, **bit1)
+        _reset_peak(dev)              # the 4 ranks share the card
+
+        t = time.perf_counter()
+        ctx = tmp.spawn(_mesh_rank, nprocs=MESH_RANKS, join=False,
+                        args=(MESH_RANKS, str(work / "gloo"), str(work),
+                              str(dev), MESH_RUN))
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t > MESH_TIMEOUT_S:
+                    raise AssertionError(f"the {MESH_RANKS}-rank world ran "
+                                         f"past {MESH_TIMEOUT_S} s")
+        except ProcessException as e:
+            errors = [json.loads(f.read_text()).get("error")
+                      for f in sorted(work.glob("mesh_rank*.json"))]
+            raise AssertionError(f"a rank failed: {e}; the ranks' errors: "
+                                 f"{[x for x in errors if x]}") from e
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(10)
+        ranks = [json.loads((work / f"mesh_rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+        wall4 = time.perf_counter() - t
+        refused = [r["refused"] for r in ranks if "refused" in r]
+        if refused:
+            emit("mesh_4rank_refused", backend="gloo", ranks=MESH_RANKS,
+                 error=refused[0], card=card)
+            raise AssertionError(f"gloo refused a collective on the card: "
+                                 f"{refused[0]}")
+        for name in ranks[0]["moe"]:
+            per = [r["moe"][name] for r in ranks]
+            emit("moe_sharded_4rank", backend="gloo", layout=name,
+                 card=card, aux=per[0]["aux"],
+                 tokens_per_rank=per[0]["tokens_per_rank"],
+                 experts_per_rank=per[0]["experts_per_rank"],
+                 capacity_per_rank=per[0]["capacity_per_rank"],
+                 a2a_bytes_per_rank=per[0]["a2a_bytes_per_rank"],
+                 a2a_per_fwd_bwd=per[0]["a2a_per_fwd_bwd"],
+                 **{key: [p[key] for p in per] for key in (
+                     "fwd_ms", "fwd_bwd_ms", "a2a_ms", "peak_memory_gb",
+                     "holds_max_abs_err", "wall_s")})
+        emit("moe_sharded", card=card, config=MESH_RUN["module"],
+             tokens=MESH_RUN["moe_tokens"], layouts=["1x1"]
+             + list(ranks[0]["moe"]), holds_passed=True,
+             world1_wall_s=t_moe1)
+        per = [r["train"] for r in ranks]
+        emit("train_sharded_4rank", backend="gloo", layout=[2, 2],
+             card=card, layers=MESH_RUN["train_layers"],
+             batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+             schedule=TRAIN_SHARDED_SCHEDULE,
+             hold_max_abs_err=per[0]["hold_max_abs_err"],
+             param_dtype="float32",
+             hold_tolerance=dict(gradients=TRAIN_SHARDED_GRAD_TOL,
+                                 params=TRAIN_STEP_TOL),
+             grad_max_abs_err=per[0]["grad_max_abs_err"],
+             routing_ties=per[0]["routing_ties"],
+             **{key: [p[key] for p in per] for key in (
+                 "step_ms", "losses", "gather_bytes_per_step",
+                 "reduce_bytes_per_step", "shard_bytes",
+                 "peak_memory_gb", "wall_s")})
+        out, err = dry.communicate(timeout=MESH_TIMEOUT_S)
+        if dry.returncode != 0:
+            raise AssertionError(f"the dry run failed: {err[-2000:]}")
+        peaks = {}
+        for f in sorted((work / "dryrun").glob("*.json")):
+            rec = json.loads(f.read_text())
+            if rec["status"] == "ok":
+                mem = rec["memory"]["peak_bytes_per_device"]
+                best = peaks.get(rec["mesh"])
+                if best is None or mem > best[0]:
+                    peaks[rec["mesh"]] = (mem, f"{rec['arch']} x "
+                                          f"{rec['shape']}")
+        emit("dryrun", summary=out.strip().splitlines()[-1],
+             largest_peak_bytes_per_device={
+                 m: {"bytes": b, "cell": c} for m, (b, c) in peaks.items()},
+             device_bytes=80 * 2 ** 30)
+        emit("train_sharded", card=card, world1_wall_s=t_world1,
+             world4_wall_s=wall4,
+             both_phases_wall_s=time.perf_counter() - t_phase)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait(10)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def _launch_args(tmp):
     return ("-m", "repro_torch.launch.train", "--arch", "tinyllama-1.1b",
             "--smoke", "--steps", "4", "--ckpt-dir", f"{tmp}/launch",
@@ -3440,6 +4148,7 @@ def main():
     mind_phase(dev, card)
     lm_phase(dev, card)
     train_phase(dev, card)
+    mesh_phases(dev, card)
 
     csrc = "src/repro_torch/kernels/csrc"
     meta = {

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -78,6 +79,40 @@ def tree_unflatten(like, leaves):
         raise ValueError(f"{len(leaves)} leaves for a tree of {n}")
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+class _Call(nn.Module):
+    def __init__(self, model: nn.Module, method: str, kw: dict):
+        super().__init__()
+        self.model, self.method, self.kw = model, method, kw
+
+    def forward(self, *args):
+        return getattr(self.model, self.method)(*args, **self.kw)
+
+
+def bound_call(model: nn.Module, method: str, **kw):
+    """``fn(params, *args)``: ``model.<method>(*args, **kw)`` with the tree
+    ``params`` (named as ``model.named_parameters()``) in place of the
+    module's own parameters (``torch.func.functional_call``)."""
+    call = _Call(model, method, kw)
+
+    def fn(params, *args):
+        flat = {f"model.{k}": v for k, v in flatten_tree(params).items()}
+        return functional_call(call, flat, args)
+    return fn
+
+
+def params_tree(module: nn.Module) -> dict:
+    """The module's parameters as the nested dict its dotted names spell
+    (every key a string)."""
+    out: dict = {}
+    for name, p in module.named_parameters():
+        *path, last = name.split(".")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = p
+    return out
 
 
 def load_numpy_params(module: nn.Module, tree) -> nn.Module:

@@ -49,13 +49,17 @@ class MIND(nn.Module):
     def __init__(self, cfg: RecSysConfig, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
         d = cfg.embed_dim
         self.cfg = cfg
+        if dev.type == "meta":      # shapes and dtypes only, nothing drawn
+            def normal(shape):
+                return nn.Parameter(torch.empty(shape, device=dev))
+        else:
+            gen = torch.Generator(device=dev).manual_seed(seed)
 
-        def normal(shape):
-            return nn.Parameter(torch.randn(shape, generator=gen, device=dev)
-                                * d ** -0.5)
+            def normal(shape):
+                return nn.Parameter(torch.randn(shape, generator=gen,
+                                                device=dev) * d ** -0.5)
 
         self.item_embed = normal((cfg.n_items, d))
         self.s_matrix = normal((d, d))

@@ -155,12 +155,15 @@ class Transformer(nn.Module):
     The methods are the reference's functions with ``params, cfg`` bound:
     ``forward``, ``forward_hidden``, ``loss_fn``, ``decode_step`` and
     ``prefill``; ``init_cache(cfg, batch, s_cache, device)`` stays a
-    function, as in the reference."""
+    function, as in the reference.  On ``device="meta"`` nothing is
+    drawn: the parameters have their shapes and dtypes and no values
+    (the reference's ``jax.eval_shape(init_params)``)."""
 
     def __init__(self, cfg: TransformerConfig, seed: int = 0, device=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = None if dev.type == "meta" else \
+            torch.Generator(device=dev).manual_seed(seed)
         l, d, h, kv, dh, f, v = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                                  cfg.n_kv_heads, cfg.d_head, cfg.d_ff,
                                  cfg.vocab)

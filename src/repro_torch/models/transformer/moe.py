@@ -119,7 +119,10 @@ def normal_(out: torch.Tensor, gen: torch.Generator, scale: float,
             chunk: int = 1 << 26) -> torch.Tensor:
     """Fill ``out`` in place with N(0, scale^2) drawn in float32 on its
     device, then cast to its dtype, a chunk of elements at a time (a
-    full-width expert stack never exists in float32)."""
+    full-width expert stack never exists in float32).  A meta tensor is
+    returned as it is (``gen`` may then be None)."""
+    if out.is_meta:
+        return out
     flat = out.view(-1)
     for i in range(0, flat.numel(), chunk):
         n = min(chunk, flat.numel() - i)

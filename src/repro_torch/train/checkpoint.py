@@ -122,19 +122,32 @@ def latest_step(ckpt_dir: str) -> int | None:
 def restore(ckpt_dir: str, like: Any, *, step: int | None = None,
             shardings: Any = None) -> Any:
     """Restore into the structure of ``like`` (its shapes, dtypes and
-    devices); ``shardings``, a tree shaped as ``like`` of
-    ``torch.device``s, places each tensor leaf anew (the elastic path)."""
+    devices).  ``shardings``, a tree shaped as ``like``, places each
+    tensor leaf anew: a ``torch.device`` moves the whole leaf there, a
+    ``launch.sharding.Layout`` keeps this rank's shard of it on the
+    layout's mesh device (``like`` then gives the whole shapes, and may
+    be on the meta device)."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     path = os.path.join(ckpt_dir, f"step-{step:09d}", "arrays.npz")
     with np.load(path) as data:
         leaves = [data[f"leaf_{i}"] for i in range(len(tree_leaves(like)))]
-    state = from_numpy_leaves(like, leaves)
-    if shardings is not None:
-        state = tree_map(lambda x, d: x.to(d) if isinstance(x, torch.Tensor)
-                         else x, state, shardings)
-    return state
+    if shardings is None:
+        return from_numpy_leaves(like, leaves)
+    host = tree_map(lambda x: torch.empty((), dtype=x.dtype).expand(x.shape)
+                    if isinstance(x, torch.Tensor) else x, like)
+    state = from_numpy_leaves(host, leaves)
+
+    def place(x, where):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if isinstance(where, torch.device):
+            return x.to(where)
+        shard = where.shard(x)
+        return torch.empty(shard.shape, dtype=shard.dtype,
+                           device=where.mesh.device).copy_(shard)
+    return tree_map(place, state, shardings)
 
 
 def checkpoint_hook(ckpt_dir: str, every: int, *, keep: int = 3,

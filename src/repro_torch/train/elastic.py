@@ -2,9 +2,9 @@
 
 Synchronous SPMD posture:
 - node failure  -> job restarts from the latest atomic checkpoint;
-- resize        -> ``resume_on_mesh`` restores full arrays and places
-  each leaf where the *new* layout says (checkpoints are
-  placement-independent by construction);
+- resize        -> ``resume_on_mesh`` restores full arrays and keeps
+  each rank's shard of every leaf under the *new* mesh's layouts
+  (checkpoints are placement-independent by construction);
 - stragglers    -> deterministic synchronous steps make stragglers visible
   as step-time outliers; the mitigation at this layer is hot-spare capacity
   plus restart-on-slow (watchdog), both host-side concerns; the step's own
@@ -20,14 +20,16 @@ from . import checkpoint as ckpt
 
 
 def resume_on_mesh(ckpt_dir: str, like_state: Any, mesh,
-                   placement_fn: Callable[[Any, Any], Any]):
-    """Restore the latest checkpoint onto ``mesh``.
+                   sharding_fn: Callable[[Any, Any], Any]):
+    """Restore the latest checkpoint onto ``mesh`` (any shape).
 
-    placement_fn(state_like, mesh) -> a tree shaped as the state of
-    ``torch.device``s, one for each leaf.
+    sharding_fn(state_like, mesh) -> a tree shaped as the state of
+    ``launch.sharding.Layout``s (each rank keeps its shard of the whole
+    leaf, e.g. ``lm_state_shardings``) or of ``torch.device``s (the whole
+    leaf moves there).  ``like_state`` has the whole shapes.
     """
-    placement = placement_fn(like_state, mesh)
-    return ckpt.restore(ckpt_dir, like_state, shardings=placement)
+    shardings = sharding_fn(like_state, mesh)
+    return ckpt.restore(ckpt_dir, like_state, shardings=shardings)
 
 
 class StepWatchdog:

@@ -278,9 +278,23 @@ def test_remat_gradient_equals_without():
 
 
 def test_state_shardings_are_not_ported():
-    with pytest.raises(NotImplementedError, match="17f"):
-        TL.make_train_step(lambda p, b, r: None, lr_schedule=lambda s: 0.1,
-                           state_shardings={})
+    """``state_shardings`` is ported: on a mesh of one rank (no process
+    group is touched) the sharded step is the unsharded one, bitwise."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.sharding import lm_state_shardings
+    mesh = Mesh(("data", "model"), (1, 1), (0, 0), torch.device("cpu"))
+    model = Transformer(CFG, seed=4, device="cpu")
+    data = next(TD.lm_batches(CFG, 4, 16, seed=2, device="cpu"))
+    kw = dict(optimizer="adamw", lr_schedule=lambda s: 1e-2, donate=False)
+    state = TL.init_state(seed_key(1), model.params)
+    step = TL.make_train_step(TL.lm_loss(model), **kw)
+    sharded = TL.make_train_step(TL.lm_loss(model), **kw,
+                                 state_shardings=lm_state_shardings(
+                                     state, mesh))
+    (a, ma), (b, mb) = step(state, data), sharded(state, data)
+    _same_leaves(b, tree_leaves(a))
+    for k in ma:
+        assert float(ma[k]) == float(mb[k]), k
 
 
 # ------------------------------------------------- twins of the JAX tests
