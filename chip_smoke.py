@@ -123,7 +123,31 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    must end in ``OK``.  One ``baselines`` line: the checks, DBL's build
    beside IP-lite's, each round's query and insert times, the SCC times
    and the sampler's.  The grid kernels' launches add to their counts.
-10. gnn: the GNN family (``repro_torch.models.gnn``) at each model's full
+10. aot: the AOT cache (``serve/aot.py``) on the LJ preset at full size
+   (k = k' = 64, ``max_iters=64``, bfs_chunk 64), for
+   ``QueryEngine(bfs_kernel=True)`` and ``QueryEngine(bfs_kernel=True,
+   streaming=True)`` (``AOT_RUNS``): this process warms an engine up
+   into an empty cache, which exports and saves the label phase at the
+   20 032-lane batch and, for each chunk bucket (16, 32, 64), the
+   residue's prologue and BFS round (``aot_store`` lines: ms per export
+   and save, bytes per ``.pt2``).  A fresh child process
+   (``aot_child``) warms up from that cache, where every file must hit
+   and none miss, and answers a round of 20 000 queries through the
+   loaded programs; it times rounds through them against a live engine
+   on a second copy of the index (loaded, live, live, loaded), profiles
+   a loaded round (every dispatch must reach a loaded program, and both
+   of the engine's kernels must launch), then inserts 100 edges,
+   deletes 500 single-slot pairs and answers a second round (dirty
+   labels: live phases); one child serves both engines in turn.  A
+   second child starts the first engine from an empty cache.
+   Both rounds must equal a live engine's in this process bitwise, and
+   the first round's residue lanes and 64 random lanes of each round a
+   host BFS over that round's edges.
+   Lines ``aot_store``, ``aot_child`` (load ms per file, seconds from a
+   child's start to its first answered batch with a warm and with an
+   empty cache, round ms loaded and live) and ``aot``; the launches from
+   loaded programs add to the kernels' counts.
+11. gnn: the GNN family (``repro_torch.models.gnn``) at each model's full
    CONFIG, TF32 off.  PNA on ``full_graph_sm`` (2 708 nodes, 10 556
    uniform random edges, 1 433 features, 7 classes); NequIP, MACE and
    DimeNet on ``molecule`` (128 graphs of 30 atoms and their 64 shortest
@@ -145,7 +169,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    twin ``examples/gnn_reachability_torch.py`` runs at its defaults on
    the card beside the CPU holds and must end in ``OK``; one ``gnn``
    summary line.
-11. mind: MIND (``repro_torch.models.recsys.mind``) at its full CONFIG
+12. mind: MIND (``repro_torch.models.recsys.mind``) at its full CONFIG
    (2 097 152 items x 64, a 512 MiB float32 table), TF32 off: one loss
    step (forward, backward, ``w - 0.5 g``) at batch 256 with the config's
    50 history slots and 512 negatives, and ``retrieval_scores`` for 16
@@ -154,7 +178,7 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    rows the batch touches, and the scores, within ``GNN_TOL``); 5 timed
    steps and retrievals, one step profiled; one ``mind`` line.  No
    kernel of the port's is on this path.
-12. lm: the transformer family (``repro_torch.models.transformer``,
+13. lm: the transformer family (``repro_torch.models.transformer``,
    ``serve/decode.py``) at full width, TF32 off: tinyllama-1.1b and
    qwen1.5-0.5b whole, gemma2-27b and moonshot-v1-16b-a3b cut to 4
    layers, arctic-480b to 1 (``LM_RUNS``), each drawn on the card from a
@@ -171,13 +195,13 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    The twin ``examples/serve_lm_torch.py`` runs beside it on the card and
    must end in ``OK``.  One ``lm_model`` line a config, one ``lm`` line.
    No kernel of the port's is on this path.
-13. train: the training path (``repro_torch.train``, ``launch/train.py``)
+14. train: the training path (``repro_torch.train``, ``launch/train.py``)
    at full width (``TRAIN_RUNS``): timed steps, accum-2 steps, a profiled
    step, the optimizer update alone and the holds; the kill-and-restart
    check on qwen1.5-0.5b in a subprocess; the example twin and the
    launcher (then ``--resume``).  Lines ``train_model``, ``train_restart``,
    ``train``.
-14. moe_sharded and train_sharded (``mesh_phases``): the expert-parallel
+15. moe_sharded and train_sharded (``mesh_phases``): the expert-parallel
    MoE (``models.transformer.moe_sharded``) at moonshot-v1-16b-a3b's full
    MoE width (64 experts, d_model 2048, top-6, d_ff 1408, 2 shared
    experts, bf16 weights) over 4 096 tokens without drops, first as a
@@ -205,8 +229,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``moe_sharded``, ``train_sharded_world1``, ``train_sharded_4rank``,
    ``dryrun``, ``train_sharded``.  No kernel of the port's is on this
    path.
-15. the ``kernels`` summary line, then the ``ok`` line last.
+16. the ``kernels`` summary line, then the ``ok`` line last.
 """
+import functools
 import json
 import re
 import shutil
@@ -652,19 +677,19 @@ def kernel_timings(dev):
     phase's padded verdict batch and the coalesced phase's 64-lane admit
     plane, the grid kernels with clean labels (edge-count cutoff only),
     the streamed kernels with dirty labels (edge-count and tombstone
-    cutoffs, pre-combined into freshness rows as the streamed wrappers
-    do).  Each kernel's output must equal its plain version's, bitwise, on
+    cutoffs).  Each kernel is timed through its custom op on the
+    pre-combined freshness rows the wrappers hand it, its plain version on
+    the cutoffs.  Each kernel's output must equal its plain version's, bitwise, on
     the timed inputs.  Each shape also gets its launch floor: ``zero_`` of
     its int8 output ((Q,) verdicts, (n_cap, Qc) admit plane), timed the
     same way."""
     import torch
     from repro_torch.core.query import FRESH_CUT
     from repro_torch.kernels.bfs_prune.bfs_prune import (
-        admit_plain, admit_streamed_plain, bfs_admit_plane,
-        streamed_admit_row)
+        admit_plain, admit_row, admit_streamed_plain, streamed_admit_row)
     from repro_torch.kernels.dbl_query.dbl_query import (
-        dbl_query_verdicts, freshness_rows, streamed_verdicts_rows,
-        verdicts_plain, verdicts_streamed_plain)
+        freshness_rows, streamed_verdicts_rows, verdicts_plain, verdicts_rows,
+        verdicts_streamed_plain)
     rng = np.random.default_rng(1)
     n, w = LJ_N, 2
     p = random_planes(rng, n, 64, 64, dev)
@@ -686,9 +711,12 @@ def kernel_timings(dev):
     # theorem intersections (4*Wd), one per word for each BL containment
     # test (2*Wb), and the gates and the select
     ops = q * (4 * w + 2 * w + 8)
+    # the kernels take the cutoffs as freshness rows (the custom ops'
+    # operands); the plain versions the cutoffs themselves
+    rows1 = freshness_rows(**cuts)
     out["verdicts_kernel"] = timed(
         "verdicts_kernel", f"n_cap={n} W=2 Q={q} int8 out, m_cut",
-        lambda: dbl_query_verdicts(*p, u, v, **cuts, out_dtype=torch.int8),
+        lambda: verdicts_rows(*p, u, v, rows1, out_dtype=torch.int8),
         lambda: verdicts_plain(*p, u, v, **cuts, out_dtype=torch.int8),
         nbytes, ops, floor_q=q)
 
@@ -703,9 +731,10 @@ def kernel_timings(dev):
     # per output byte: one logic op per word for each BL containment test
     # and for the DL intersection, then the combine and the store's select
     ops = n * q * (2 * w + w + 2)
+    fresh = freshness_rows(**cuts)[0]
     out["admit_kernel"] = timed(
         "admit_kernel", f"n_cap={n} W=2 Qc={q} int8 out, m_cut",
-        lambda: bfs_admit_plane(*args, **cuts),
+        lambda: admit_row(*args, fresh),
         lambda: admit_plain(*args, **cuts), nbytes, ops, floor_q=n * q)
 
     # the dynamic phase's dirty label phase: both freshness rows (all
@@ -2244,6 +2273,297 @@ def _finish_examples(procs, t, endings=None):
                 proc.kill()
                 proc.wait(10)
     return out
+
+
+#: the AOT phase's two engines: the grid kernels, and the streamed ones
+AOT_RUNS = (("grid", dict(bfs_kernel=True)),
+            ("streamed", dict(bfs_kernel=True, streaming=True)))
+AOT_CHILD_TIMEOUT_S = 300
+#: the four kernels by the kernels line's names
+KERNELS = ("verdicts_kernel", "admit_kernel", "streamed_verdicts_kernel",
+           "streamed_admit_kernel")
+
+
+def _counters():
+    """The wrappers that count each kernel's launches, by name."""
+    from repro_torch.kernels.bfs_prune import bfs_prune as B
+    from repro_torch.kernels.dbl_query import dbl_query as V
+    return dict(zip(KERNELS, (V.dbl_query_verdicts, B.bfs_admit_plane,
+                              V.dbl_query_verdicts_streamed,
+                              B.bfs_admit_plane_streamed)))
+
+
+def _launch_counts():
+    return {name: f.launches for name, f in _counters().items()}
+
+
+def _kernel_of(name):
+    """The kernels line's name of a profiled CUDA kernel, or None."""
+    for k in ("streamed_verdicts_kernel", "streamed_admit_kernel",
+              "verdicts_kernel", "admit_kernel"):
+        if k in name:
+            return k
+    return None
+
+
+def _aot_engine(idx, knobs):
+    from repro_torch.serve.engine import QueryEngine
+    return QueryEngine(idx, bfs_chunk=BFS_CHUNK, max_iters=64, **knobs)
+
+
+def _timed_round(eng, u, v):
+    import torch
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" else \
+        (lambda: None)
+    sync()
+    t = time.perf_counter()
+    ans = eng.query(u, v)
+    sync()
+    return ans, (time.perf_counter() - t) * 1e3
+
+
+def aot_child(argv):
+    """A fresh serving process over the AOT cache (``aot_phase``), run as
+    ``python -c 'import sys, chip_smoke; chip_smoke.aot_child(
+    sys.argv[1:])' <work dir> <t0> <cold> <device> <run> ...``.  For each
+    run of ``AOT_RUNS`` named, in turn: load the saved index,
+    ``aot_warmup`` (the round's batch) from ``<work>/cache_<run>`` (a cold
+    child: from the empty ``<work>/cold_<run>``) and answer the first
+    round of queries; the first run also reports the seconds since ``t0``
+    (the parent's clock at the start).  A cold child stops there.  A warm
+    one then times a round through the loaded programs against a live
+    engine on a second copy of the index (loaded, live, live, loaded),
+    profiles a loaded round (every dispatch must reach a loaded program),
+    inserts, deletes and answers the second round; the answers go to
+    ``<run>_answers.npz``, one report a run to a line of stdout."""
+    import torch
+    from repro_torch.serve.aot import ShapeDispatcher
+    work, t0, cold, dev = (Path(argv[0]), float(argv[1]), argv[2] == "1",
+                           argv[3])
+    data = np.load(work / "stream.npz")
+    for i, run in enumerate(argv[4:]):
+        out = _aot_child_run(work, run, cold, dev, data, t0 if i == 0
+                             else None, torch, ShapeDispatcher)
+        print(json.dumps(out), flush=True)
+
+
+def _aot_child_run(work, run, cold, dev, data, t0, torch, ShapeDispatcher):
+    knobs = dict(AOT_RUNS)[run]
+    cache = work / (f"cold_{run}" if cold else f"cache_{run}")
+    idx = torch.load(work / "index.pt", weights_only=False,
+                     map_location=dev)
+    eng = _aot_engine(idx, knobs)
+    t = time.perf_counter()
+    eng.aot_warmup(idx, cache, batch_sizes=(data["u1"].size,))
+    warmup_ms = (time.perf_counter() - t) * 1e3
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def loaded(fn):
+        """``fn()`` on the loaded programs, its launches counted."""
+        before = _launch_counts()
+        res = fn()
+        for k, c in _launch_counts().items():
+            launches[k] += c - before[k]
+        return res
+
+    ans1, first_ms = loaded(lambda: _timed_round(eng, data["u1"],
+                                                 data["v1"]))
+    out = dict(run=run, cold=cold, warmup_ms=warmup_ms,
+               first_round_ms=first_ms, hits=eng.aot_cache.hits,
+               misses=eng.aot_cache.misses, stores=eng.aot_cache.stores,
+               load_ms=[r["load_ms"] for r in eng.aot_cache.log
+                        if r["event"] == "load"])
+    if t0 is not None:
+        out["first_batch_s"] = time.time() - t0
+    if cold:
+        return out
+    live = _aot_engine(torch.load(work / "index.pt", weights_only=False,
+                                  map_location=dev), knobs)
+    _timed_round(live, data["u1"], data["v1"])    # the live path's warm-up
+    rounds = {"loaded": [], "live": []}
+    for name, e in (("loaded", eng), ("live", live), ("live", live),
+                    ("loaded", eng)):
+        run_e = functools.partial(_timed_round, e, data["u1"], data["v1"])
+        ans, ms = loaded(run_e) if name == "loaded" else run_e()
+        if not np.array_equal(ans, ans1):
+            raise AssertionError(f"aot {run}: a {name} round differs from "
+                                 "the first loaded round")
+        rounds[name].append(ms)
+    dispatchers = [eng._label_phase] + [d for pair in eng._coal_phases
+                                        .values() for d in pair]
+    assert all(isinstance(d, ShapeDispatcher) for d in dispatchers)
+    live_before = sum(d.live_calls for d in dispatchers)
+    # the CPU (a rehearsal) has no kernels to profile
+    profile = _device_profile if dev == "cuda" else \
+        (lambda fn: (fn(), 0, {}))
+    _, _, per_kernel = loaded(lambda: profile(
+        lambda: eng.query(data["u1"], data["v1"])))
+    if sum(d.live_calls for d in dispatchers) != live_before:
+        raise AssertionError(f"aot {run}: a clean round ran a live phase")
+    profiled = {}
+    for k, (_, calls) in per_kernel.items():
+        name = _kernel_of(k)
+        if name:
+            profiled[name] = profiled.get(name, 0) + calls
+    eng.insert(data["ins_s"], data["ins_d"])
+    eng.delete(data["del_s"], data["del_d"])
+    ans2, dirty_ms = _timed_round(eng, data["u2"], data["v2"])
+    np.savez(work / f"{run}_answers.npz", ans1=ans1, ans2=ans2)
+    out.update(loaded_round_ms=rounds["loaded"], live_round_ms=rounds["live"],
+               dirty_round_ms=dirty_ms, profiled_kernels=profiled,
+               loaded_launches=launches,
+               loaded_calls=sum(d.loaded_calls for d in dispatchers))
+    return out
+
+
+def _aot_children(work, cold, dev, runs):
+    """Run ``aot_child`` on ``runs``: its reports, by run."""
+    import os
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.aot_child(sys.argv[1:])", str(work), repr(time.time()),
+         str(int(cold)), dev.type, *runs],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=AOT_CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"the aot child ({'cold' if cold else 'warm'}) "
+                             f"failed (rc {proc.returncode}): "
+                             f"{proc.stderr[-3000:]}")
+    reports = [json.loads(line) for line in proc.stdout.splitlines()
+               if line.startswith("{")]
+    return {r["run"]: r for r in reports}
+
+
+def aot_phase(dev, card):
+    """The AOT cache (``serve/aot.py``) at full LJ width: for each engine
+    of ``AOT_RUNS``, this process warms up into an empty cache (every
+    program exported and saved); one fresh child warms every engine up
+    from its cache (every file must hit, none miss) and serves
+    (``aot_child``), and a second child starts the first engine from an
+    empty cache.  The child's answers must equal a live engine's in this
+    process bitwise, and the first round's residue lanes and 64 random
+    lanes of each round a host BFS over that round's edges.  In the warm child each profiled loaded
+    round must launch both kernels of its engine.  Returns the kernels'
+    launches from loaded programs."""
+    import torch
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.graphs.generators import table2_graph
+    from repro_torch.kernels.dbl_query.dbl_query import verdicts_plain
+
+    t_phase = time.perf_counter()
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    m = int(src.size)
+    rng = np.random.default_rng(24)
+    g = make_graph(src, dst, n, m_cap=m + INSERTS, device=dev)
+    idx = DBLIndex.build(g, n_cap=n, k=64, k_prime=64, max_iters=64,
+                         check="raise", device=dev)
+    pairs, mult = np.unique(src.astype(np.int64) * n + dst,
+                            return_counts=True)
+    pick = rng.choice(pairs[mult == 1], DELETES, replace=False)
+    data = dict(u1=rng.integers(0, n, QUERIES).astype(np.int32),
+                v1=rng.integers(0, n, QUERIES).astype(np.int32),
+                u2=rng.integers(0, n, QUERIES).astype(np.int32),
+                v2=rng.integers(0, n, QUERIES).astype(np.int32),
+                ins_s=rng.integers(0, n, INSERTS).astype(np.int32),
+                ins_d=rng.integers(0, n, INSERTS).astype(np.int32),
+                del_s=(pick // n).astype(np.int32),
+                del_d=(pick % n).astype(np.int32))
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_aot_"))
+    try:
+        np.savez(work / "stream.npz", **data)
+        torch.save(idx, work / "index.pt")
+        # the oracle's inputs: round 1's residue lanes (by the labels) and
+        # edges, round 2's edges after the insert and the delete
+        verd = verdicts_plain(*idx.packed, torch.from_numpy(data["u1"]).to(
+            dev), torch.from_numpy(data["v1"]).to(dev)).cpu().numpy()
+        residue = np.flatnonzero(verd == -1)
+        dead = np.isin(src.astype(np.int64) * n + dst, pick)
+        edges2 = (np.concatenate([src[~dead], data["ins_s"]]),
+                  np.concatenate([dst[~dead], data["ins_d"]]))
+        stores, wants = {}, {}
+        for run, knobs in AOT_RUNS:
+            cache = work / f"cache_{run}"
+            eng = _aot_engine(idx, knobs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.aot_warmup(idx, cache, batch_sizes=(QUERIES,))
+            warm_s = time.perf_counter() - t
+            stores[run] = eng.aot_cache.stores
+            entries = [r for r in eng.aot_cache.log if r["event"] == "store"]
+            if eng.aot_cache.hits or not entries or \
+                    len(list(cache.glob("*.pt2"))) != stores[run]:
+                raise AssertionError(f"aot {run}: the first warm-up hit "
+                                     f"{eng.aot_cache.hits}, stored "
+                                     f"{stores[run]}")
+            emit("aot_store", run=run, card=card, warmup_s=warm_s,
+                 entries=[{k: r[k] for k in ("tag", "export_ms", "save_ms",
+                                             "bytes")} for r in entries])
+            # the live answers, on a fresh copy of the index
+            live = _aot_engine(torch.load(work / "index.pt",
+                                          weights_only=False,
+                                          map_location=dev), knobs)
+            want1 = live.query(data["u1"], data["v1"])
+            live.insert(data["ins_s"], data["ins_d"])
+            live.delete(data["del_s"], data["del_d"])
+            wants[run] = (want1, live.query(data["u2"], data["v2"]))
+        runs = [run for run, _ in AOT_RUNS]
+        warm = _aot_children(work, False, dev, runs)
+        cold = _aot_children(work, True, dev, runs[:1])[runs[0]]
+        if cold["stores"] != stores[runs[0]]:
+            raise AssertionError(f"aot: the cold child stored "
+                                 f"{cold['stores']} of {stores[runs[0]]}")
+        launches = dict.fromkeys(KERNELS, 0)
+        wanted = {"grid": ("verdicts_kernel", "admit_kernel"),
+                  "streamed": ("streamed_verdicts_kernel",
+                               "streamed_admit_kernel")}
+        for run in runs:
+            w = warm[run]
+            if w["hits"] != stores[run] or w["misses"] or w["stores"]:
+                raise AssertionError(f"aot {run}: the fresh process hit "
+                                     f"{w['hits']} of {stores[run]}, "
+                                     f"missed {w['misses']}")
+            got = np.load(work / f"{run}_answers.npz")
+            for name, a, b in (("round 1", got["ans1"], wants[run][0]),
+                               ("round 2", got["ans2"], wants[run][1])):
+                if not np.array_equal(a, b):
+                    raise AssertionError(
+                        f"aot {run}: {name} through loaded programs differs "
+                        f"from the live engine in {int((a != b).sum())} "
+                        "lanes")
+            checked = 0
+            for ans, u, v, (es, ed), lanes in (
+                    (got["ans1"], data["u1"], data["v1"], (src, dst),
+                     residue),
+                    (got["ans2"], data["u2"], data["v2"], edges2,
+                     np.zeros(0, np.int64))):
+                lanes = np.union1d(lanes, rng.choice(
+                    QUERIES, RANDOM_CHECKS, replace=False))
+                reach = host_reach(n, es, ed, np.unique(u[lanes]))
+                want = np.array([reach[int(u[i])][v[i]] for i in lanes])
+                if (ans[lanes] != want).any():
+                    raise AssertionError(f"aot {run}: answers differ from "
+                                         "the host BFS")
+                checked += lanes.size
+            for k in wanted[run]:
+                if w["profiled_kernels"].get(k, 0) <= 0 or \
+                        w["loaded_launches"][k] <= 0:
+                    raise AssertionError(f"aot {run}: {k} not launched "
+                                         "from a loaded program")
+            for k, c in w["loaded_launches"].items():
+                launches[k] += c
+            emit("aot_child", run=run, card=card, residue_lanes=residue.size,
+                 checked_lanes=checked, bitwise_with_live=True,
+                 warm={k: v for k, v in w.items() if k not in ("run",
+                                                               "cold")},
+                 cold={k: v for k, v in cold.items() if k not in ("run",
+                                                                  "cold")}
+                 if run == runs[0] else None)
+        emit("aot", card=card, launches_from_loaded_programs=launches,
+             wall_s=time.perf_counter() - t_phase)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def baselines_phase(dev, card):
@@ -4142,6 +4462,8 @@ def main():
     for name, c in sharded_phase(card).items():
         launches[name] += c
     for name, c in baselines_phase(dev, card).items():
+        launches[name] += c
+    for name, c in aot_phase(dev, card).items():
         launches[name] += c
     for name, c in gnn_phase(dev, card).items():
         launches[name] += c

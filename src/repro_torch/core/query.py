@@ -29,7 +29,7 @@ FRESH_CUT = 2**31 - 1
 
 #: element types of the BFS frontier: "int8"/"int32" for the segment-max
 #: operand of the lane-wise loop, "packed" for the loop on int32 words (32
-#: query lanes a word, ``_pruned_bfs_packed``); all give bitwise-identical
+#: query lanes a word, ``bfs_round``); all give bitwise-identical
 #: hits.
 FRONTIER_DTYPES = {"int8": torch.int8, "int32": torch.int32,
                    "packed": torch.int32}
@@ -257,50 +257,109 @@ def relax(frontier: torch.Tensor, tails: torch.Tensor, heads: torch.Tensor,
     return nxt > 0
 
 
-def _pruned_bfs_packed(g: Graph, v: torch.Tensor, admit: torch.Tensor,
-                       frontier: torch.Tensor, m_cut, *, n_cap: int,
-                       max_iters: int) -> torch.Tensor:
-    """The lane-wise loop of ``pruned_bfs`` on (n_cap, ceil(Qc/32)) int32
-    words: gather the frontier words along live (and, per lane, cut-
-    admitted) edges, segment-OR them by head, gate by admit, visited and
-    hit.  The same rounds, the same host check per round, so the hits are
-    bitwise equal.  The dst-argsort and the packed per-edge cutoff are
-    hoisted out of the loop."""
-    dev = v.device
-    qc = v.shape[0]
-    lane_mask = bitset.pad_mask(qc, dev)
-    admit_w = bitset.pack(admit)
-    live = edge_mask(g) & (g.dst >= 0) & (g.dst < n_cap)
-    order = torch.argsort(g.dst)
-    src_s = g.src[order].clamp(0, n_cap - 1).long()
-    dst_s = g.dst[order].long()
-    live_s = live[order]
-    cut_ws = None
-    if m_cut is not None and bool((m_cut < g.m).any()):
-        # lanes whose cutoff reaches g.m see every live edge: the packed
-        # cut is all ones there, and needed only when some lane is stale
-        cut_ws = bitset.pack(order[:, None] < m_cut[None, :].long())
-    fw = bitset.pack(frontier)
-    vw = fw
-    hw = torch.zeros_like(lane_mask)
+def bfs_prologue(g: Graph, p: PackedLabels | None, u: torch.Tensor,
+                 v: torch.Tensor, admit: torch.Tensor | None = None,
+                 m_cut: torch.Tensor | None = None,
+                 dl_clean: bool | None = None, il=None, *, n_cap: int,
+                 frontier_dtype: str = "int8", lazy_cut: bool = True):
+    """Everything :func:`pruned_bfs` does before its first round, as
+    ``(carry, consts, go)``: the loop-carried tensors (frontier, visited,
+    hit; words on the packed path), the loop-invariant ones (the admit
+    plane, the edges as each round reads them, the lanes' targets) and the
+    0-d bool that the host reads to decide on the first round.  Tensors
+    only, with ``g.m`` and ``g.del_epoch`` read as ints or 0-d tensors, so
+    that ``torch.export`` can take it whole.
+
+    The packed path builds the per-edge cutoff words only when some lane
+    is stale, which costs one host read (``lazy_cut``); ``lazy_cut=False``
+    always builds them when ``m_cut`` is given (an exported prologue,
+    which cannot read the host), and the hits are the same."""
+    dev = u.device
+    qc = u.shape[0]
+    live = edge_mask(g)
+    clean = True if dl_clean is None else bool(dl_clean)
+    if m_cut is None:
+        dl_on = None if dl_clean is None else \
+            torch.full((qc,), clean, dtype=torch.bool, device=dev)
+    else:
+        dl_on = (m_cut >= g.m) & clean
+    if admit is None:
+        admit = _admit_plane(p, u, v, n_cap, dl_on, il if clean else None)
+    elif admit.dtype != torch.bool:
+        admit = admit > 0
+    ids = torch.arange(n_cap, device=dev)
+    frontier = ids[:, None] == u[None, :].long()        # (n_cap, Qc)
     lanes = torch.arange(qc, device=dev)
-    lw, lb = lanes // bitset.WORD, lanes % bitset.WORD
     v_safe = v.clamp(0, n_cap - 1).long()
-    it = 0
-    while it < max_iters and bool((fw != 0).any()
-                                  & ((hw & lane_mask) != lane_mask).any()):
+    if frontier_dtype == "packed":
+        # the dst-argsort and the packed per-edge cutoff, hoisted out of
+        # the loop
+        lane_mask = bitset.pad_mask(qc, dev)
+        live = live & (g.dst >= 0) & (g.dst < n_cap)
+        order = torch.argsort(g.dst)
+        cut_ws = None
+        if m_cut is not None and (not lazy_cut
+                                  or bool((m_cut < g.m).any())):
+            # lanes whose cutoff reaches g.m see every live edge: the
+            # packed cut is all ones there, and needed only when some lane
+            # is stale
+            cut_ws = bitset.pack(order[:, None] < m_cut[None, :].long())
+        fw = bitset.pack(frontier)
+        hw = torch.zeros_like(lane_mask)
+        consts = (bitset.pack(admit), g.src[order].clamp(0, n_cap - 1).long(),
+                  g.dst[order].long(), live[order], cut_ws, v_safe,
+                  lanes // bitset.WORD, lanes % bitset.WORD, lane_mask)
+        return (fw, fw, hw), consts, _packed_go(fw, hw, lane_mask)
+    src, dst, live = relax_edges(g.src, g.dst, live, n_cap)
+    hit = torch.zeros(qc, dtype=torch.bool, device=dev)
+    consts = (admit, src, dst, live, m_cut, v_safe, lanes)
+    return (frontier, frontier.clone(), hit), consts, \
+        frontier.any() & ~hit.all()
+
+
+def _packed_go(fw: torch.Tensor, hw: torch.Tensor, lane_mask: torch.Tensor
+               ) -> torch.Tensor:
+    return (fw != 0).any() & ((hw & lane_mask) != lane_mask).any()
+
+
+def bfs_round(carry, consts, *, frontier_dtype: str = "int8",
+              scan_steps: int | None = None):
+    """One round of the lane-wise loop on :func:`bfs_prologue`'s state:
+    ``(carry, go)``.  Relax the frontier along the live (and, per lane,
+    cut-admitted) edges, gate by admit, visited and hit, and gather the
+    targets' rows.  The packed path gathers the frontier words of the
+    edges whose source is on the frontier and segment-ORs them by head;
+    ``scan_steps`` fixes that scan's depth (an exported round, which
+    cannot read the host; any depth that covers the longest run gives the
+    same words), None reads the longest run on the host."""
+    if frontier_dtype == "packed":
+        fw, vw, hw = carry
+        admit_w, src_s, dst_s, live_s, cut_ws, v_safe, lw, lb, lane_mask = \
+            consts
         eidx = torch.nonzero((fw != 0).any(1)[src_s] & live_s).squeeze(1)
         contrib = fw[src_s[eidx]]
         if cut_ws is not None:
             contrib = contrib & cut_ws[eidx]
-        nw = bitset.sorted_segment_or(contrib, dst_s[eidx], n_cap)
+        nw = bitset.sorted_segment_or(contrib, dst_s[eidx],
+                                      admit_w.shape[0], steps=scan_steps)
         nw = nw & admit_w & ~vw & ~hw[None, :]
         hits = ((nw[v_safe, lw] >> lb) & 1) != 0
         hw = hw | bitset.pack(hits)
-        vw = vw | nw
-        fw = nw
-        it += 1
-    return bitset.unpack(hw, qc)
+        return (nw, vw | nw, hw), _packed_go(nw, hw, lane_mask)
+    frontier, visited, hit = carry
+    admit, src, dst, live, m_cut, v_safe, lanes = consts
+    nxt = relax(frontier, src, dst, live, n_cap=admit.shape[0],
+                ftype=FRONTIER_DTYPES[frontier_dtype], m_cut=m_cut)
+    nxt = nxt & admit & ~visited & ~hit[None, :]
+    hit = hit | nxt[v_safe, lanes]
+    return (nxt, visited | nxt, hit), nxt.any() & ~hit.all()
+
+
+def bfs_hits(carry, qc: int, frontier_dtype: str = "int8") -> torch.Tensor:
+    """(Qc,) bool hits of a BFS state."""
+    if frontier_dtype == "packed":
+        return bitset.unpack(carry[2], qc)
+    return carry[2]
 
 
 def pruned_bfs(g: Graph, p: PackedLabels | None, u: torch.Tensor,
@@ -324,44 +383,20 @@ def pruned_bfs(g: Graph, p: PackedLabels | None, u: torch.Tensor,
     needs no edge-count gate but shares the ``dl_clean`` gate (it is not
     deletion-sound, so a dirty dispatch drops it).
 
-    The loop tests the frontier on the host once per round; only edges
-    whose source row is on the frontier take part.  ``frontier_dtype``
-    "packed" runs the loop on words (``_pruned_bfs_packed``).
+    :func:`bfs_prologue`, then :func:`bfs_round` while the host's read of
+    the round's ``go`` (some frontier left, some lane unhit) says so, at
+    most ``max_iters`` times; only edges whose source row is on the
+    frontier take part.  ``frontier_dtype`` "packed" runs the loop on
+    int32 words of 32 query lanes: the same rounds and hits.
     """
-    ftype = FRONTIER_DTYPES[frontier_dtype]
-    dev = u.device
-    qc = u.shape[0]
-    live = edge_mask(g)
-    clean = True if dl_clean is None else bool(dl_clean)
-    if m_cut is None:
-        dl_on = None if dl_clean is None else \
-            torch.full((qc,), clean, dtype=torch.bool, device=dev)
-    else:
-        dl_on = (m_cut >= g.m) & clean
-    if admit is None:
-        admit = _admit_plane(p, u, v, n_cap, dl_on, il if clean else None)
-    elif admit.dtype != torch.bool:
-        admit = admit > 0
-    ids = torch.arange(n_cap, device=dev)
-    frontier = ids[:, None] == u[None, :].long()        # (n_cap, Qc)
-    if frontier_dtype == "packed":
-        return _pruned_bfs_packed(g, v, admit, frontier, m_cut, n_cap=n_cap,
-                                  max_iters=max_iters)
-    visited = frontier.clone()
-    hit = torch.zeros(qc, dtype=torch.bool, device=dev)
-    lanes = torch.arange(qc, device=dev)
-    v_safe = v.clamp(0, n_cap - 1).long()
-    src, dst, live = relax_edges(g.src, g.dst, live, n_cap)
+    carry, consts, go = bfs_prologue(g, p, u, v, admit, m_cut, dl_clean, il,
+                                     n_cap=n_cap,
+                                     frontier_dtype=frontier_dtype)
     it = 0
-    while it < max_iters and bool(frontier.any() & ~hit.all()):
-        nxt = relax(frontier, src, dst, live, n_cap=n_cap, ftype=ftype,
-                    m_cut=m_cut)
-        nxt = nxt & admit & ~visited & ~hit[None, :]
-        hit |= nxt[v_safe, lanes]
-        visited |= nxt
-        frontier = nxt
+    while it < max_iters and bool(go):
+        carry, go = bfs_round(carry, consts, frontier_dtype=frontier_dtype)
         it += 1
-    return hit
+    return bfs_hits(carry, u.shape[0], frontier_dtype)
 
 
 def query(g: Graph, p: PackedLabels, u, v, *, n_cap: int,

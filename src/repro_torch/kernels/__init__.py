@@ -7,6 +7,13 @@ wrappers.
 Each comes as a grid kernel and a streamed one (persistent blocks with a
 two-stage cp.async ring, ``streaming=True`` in the ops wrappers).
 
-A wrapper launches its kernel for CUDA tensors and takes the kernel's plain
-PyTorch version for CPU tensors; nothing falls back from one to the other.
+Each kernel is a torch custom op under the ``repro_torch`` namespace
+(``dbl_query_verdicts``, ``dbl_query_verdicts_streamed``,
+``bfs_admit_plane``, ``bfs_admit_plane_streamed``), registered when this
+package is imported, so that a process loading an exported program finds
+them.  An op launches its kernel for CUDA tensors and runs the kernel's
+plain PyTorch version for CPU tensors; nothing falls back from one to the
+other.
 """
+from .dbl_query import dbl_query as _dbl_query  # noqa: F401  (registers)
+from .bfs_prune import bfs_prune as _bfs_prune  # noqa: F401  (registers)

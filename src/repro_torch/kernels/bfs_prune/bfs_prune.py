@@ -17,15 +17,24 @@ lanes' query-side words in registers, folds the three tests into one
 accumulator with one 3-input logic op per word, and writes each row's
 bytes of its lanes with one packed store; see the sources for the design.
 
-``bfs_admit_plane`` launches the kernel for CUDA tensors and takes
-``admit_plain`` for CPU tensors.  ``bfs_admit_plane.launches`` counts
-kernel launches.
+``bfs_admit_plane`` (on one pre-combined freshness row, ``admit_row``)
+launches the kernel for CUDA tensors and takes ``admit_plain`` for CPU
+tensors.  ``bfs_admit_plane.launches`` counts kernel launches.
 
 The streamed kernel ``csrc/bfs_prune_streamed.cu`` replaces
 ``bfs_admit_plane_streamed`` (body ``_make_streamed_kernel``, line 135):
 the same plane with the vertex axis streamed in chunks and the cutoffs
 pre-combined into one freshness row.  ``bfs_admit_plane_streamed`` and
 ``admit_streamed_plain`` are its wrapper and plain version.
+
+Each kernel is a torch custom op, ``repro_torch::bfs_admit_plane`` and
+``repro_torch::bfs_admit_plane_streamed`` (``admit_op``,
+``streamed_admit_op``), registered when this module is imported: the CUDA
+implementation launches the kernel, the CPU one is the plain version, and
+a fake implementation gives the (n_cap, Q) int8 output, so that
+``torch.export`` traces the residue through the kernel as one node.  Both
+take the cutoffs as one pre-combined 0/1 freshness row, never as host
+integers.
 
 The launch geometry of both kernels is computed here (``admit_geometry``)
 and passed to them, so that the CPU tests reach it: which thread of which
@@ -44,6 +53,7 @@ import torch
 from repro_torch.core import query as Q
 from repro_torch.kernels import _build
 from repro_torch.kernels.dbl_query.dbl_query import (_aligned, _check,
+                                                     _check_pairs,
                                                      freshness_rows)
 
 #: threads per block of the grid kernel and of the streamed kernel (the
@@ -204,30 +214,29 @@ def _check_planes(bl_in, bl_out, dl_in, dl_out, u, v, dev):
     return n_cap, wb, wd, q
 
 
-def bfs_admit_plane(bl_in, bl_out, dl_in, dl_out, u, v, m_cut=None,
-                    m_total=None, d_cut=None, d_total=None) -> torch.Tensor:
-    """(n_cap, Q) int8 admit plane.
+def _fresh_row(m_cut, m_total, d_cut, d_total):
+    """The admit kernels' one freshness row: ``(m_cut >= m_total) & (d_cut
+    >= d_total)`` as (Q,) int32 0/1, or None without cutoffs."""
+    cut = freshness_rows(m_cut, m_total, d_cut, d_total)
+    return None if cut is None else cut.all(0).to(torch.int32)
 
-    Planes (n_cap, W) int32 row-major; ``u``/``v`` (Q,) int32 (ids are
-    clamped, so a dead lane ``u = n_cap`` reads the last row).  Optional
-    ``m_cut`` (Q,) int32 with ``m_total`` int and ``d_cut`` (Q,) int32
-    with ``d_total`` int (needs the m-cut pair) gate the DL term per lane.
-    """
-    if (m_cut is None) != (m_total is None) or \
-            (d_cut is None) != (d_total is None):
-        raise ValueError("pass each cutoff with its total")
-    if d_cut is not None and m_cut is None:
-        raise ValueError("the tombstone cutoff needs the edge-count cutoff")
-    if u.device.type == "cpu":
-        return admit_plain(bl_in, bl_out, dl_in, dl_out, u, v, m_cut,
-                           m_total, d_cut, d_total)
-    if u.device.type != "cuda":
-        raise ValueError(f"no kernel for device {u.device}")
+
+def _admit_fake(bl_in, bl_out, dl_in, dl_out, u, v, fresh, *rest):
+    return u.new_empty((bl_in.shape[0], u.shape[0]), dtype=torch.int8)
+
+
+def _admit_cpu(bl_in, bl_out, dl_in, dl_out, u, v, fresh):
+    return admit_plain(bl_in, bl_out, dl_in, dl_out, u, v, fresh,
+                       None if fresh is None else 1)
+
+
+def _admit_cuda(bl_in, bl_out, dl_in, dl_out, u, v, fresh):
+    """The grid kernel on CUDA tensors; the freshness row is passed as an
+    edge-count cutoff with total 1."""
     dev = u.device
     n_cap, wb, wd, q = _check_planes(bl_in, bl_out, dl_in, dl_out, u, v, dev)
-    for name, t in (("m_cut", m_cut), ("d_cut", d_cut)):
-        if t is not None:
-            _check(name, t, dev, (q,))
+    if fresh is not None:
+        _check("fresh", fresh, dev, (q,))
     out = torch.empty((n_cap, q), dtype=torch.int8, device=dev)
     if q == 0 or n_cap == 0:
         return out
@@ -240,13 +249,45 @@ def bfs_admit_plane(bl_in, bl_out, dl_in, dl_out, u, v, m_cut=None,
     with torch.cuda.device(dev):
         err = lib.bfs_admit_plane(
             p(bl_in), p(bl_out), wb, p(dl_in), p(dl_out), wd, n_cap, p(u),
-            p(v), q, p(m_cut), int(m_total or 0), p(d_cut),
-            int(d_total or 0), p(out), g.lanes, g.groups, g.span, g.rows,
-            g.slabs, int(g.pack), int(g.vec), g.threads, g.blocks, g.smem,
-            stream)
+            p(v), q, p(fresh), int(fresh is not None), p(None), 0, p(out),
+            g.lanes, g.groups, g.span, g.rows, g.slabs, int(g.pack),
+            int(g.vec), g.threads, g.blocks, g.smem, stream)
     _build.check(lib, err, "admit_kernel")
     bfs_admit_plane.launches += 1
     return out
+
+
+admit_op = torch.library.custom_op(
+    "repro_torch::bfs_admit_plane", _admit_cpu, mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor bl_in, Tensor bl_out, Tensor dl_in, Tensor dl_out, "
+           "Tensor u, Tensor v, Tensor? fresh) -> Tensor")
+admit_op.register_kernel("cuda")(_admit_cuda)
+admit_op.register_fake(_admit_fake)
+
+
+def admit_row(bl_in, bl_out, dl_in, dl_out, u, v, fresh=None
+              ) -> torch.Tensor:
+    """The grid kernel ``csrc/bfs_prune.cu`` (the op ``admit_op``) on the
+    pre-combined freshness row ``fresh`` (Q,) int32 0/1 or None: the DL
+    term is on where it holds 1.  CPU tensors take the plain version."""
+    return admit_op(bl_in, bl_out, dl_in, dl_out, u, v, fresh)
+
+
+def bfs_admit_plane(bl_in, bl_out, dl_in, dl_out, u, v, m_cut=None,
+                    m_total=None, d_cut=None, d_total=None) -> torch.Tensor:
+    """(n_cap, Q) int8 admit plane.
+
+    Planes (n_cap, W) int32 row-major; ``u``/``v`` (Q,) int32 (ids are
+    clamped, so a dead lane ``u = n_cap`` reads the last row).  Optional
+    ``m_cut`` (Q,) int32 with ``m_total`` and ``d_cut`` (Q,) int32 with
+    ``d_total`` (needs the m-cut pair; totals ints or 0-d tensors) gate
+    the DL term per lane; they are pre-combined into one freshness row and
+    handed to ``admit_row``.
+    """
+    _check_pairs(m_cut, m_total, d_cut, d_total)
+    return admit_row(bl_in, bl_out, dl_in, dl_out, u, v,
+                     _fresh_row(m_cut, m_total, d_cut, d_total))
 
 
 bfs_admit_plane.launches = 0
@@ -264,40 +305,11 @@ def admit_streamed_plain(bl_in, bl_out, dl_in, dl_out, u, v, fresh=None
     return Q._admit_plane(p, u, v, bl_in.shape[0], dl_on).to(torch.int8)
 
 
-def bfs_admit_plane_streamed(bl_in, bl_out, dl_in, dl_out, u, v, m_cut=None,
-                             m_total=None, d_cut=None, d_total=None, *,
-                             n_block: int | None = None) -> torch.Tensor:
-    """(n_cap, Q) int8 admit plane, the same as ``bfs_admit_plane``,
-    through the streamed kernel: the cutoffs are pre-combined into one
-    freshness row, ``(m_cut >= m_total) & (d_cut >= d_total)``, and handed
-    to ``streamed_admit_row``."""
-    cut = freshness_rows(m_cut, m_total, d_cut, d_total)
-    fresh = None if cut is None else cut.all(0).to(torch.int32)
-    return streamed_admit_row(bl_in, bl_out, dl_in, dl_out, u, v, fresh,
-                              n_block=n_block)
+def _streamed_cpu(bl_in, bl_out, dl_in, dl_out, u, v, fresh, n_block):
+    return admit_streamed_plain(bl_in, bl_out, dl_in, dl_out, u, v, fresh)
 
 
-def streamed_admit_row(bl_in, bl_out, dl_in, dl_out, u, v, fresh=None, *,
-                       n_block: int | None = None) -> torch.Tensor:
-    """The streamed kernel ``csrc/bfs_prune_streamed.cu`` on the
-    pre-combined freshness row ``fresh`` (Q,) int32 0/1 or None
-    (persistent blocks, each thread's lanes resident in registers, the
-    vertex axis streamed in ``n_block``-row chunks through a two-stage
-    shared-memory ring filled by ``cp.async``).  ``n_block`` (a multiple
-    of 4) defaults to ``pick_n_block``.  A block's staged lane side takes
-    at most ``LANE_SMEM_BYTES`` (more lanes spread over lane slabs), so
-    any number of lanes fits; only an ``n_block`` whose ring does not fit
-    beside it at these label widths raises.  CPU tensors take
-    ``admit_streamed_plain``.  ``bfs_admit_plane_streamed.launches``
-    counts kernel launches."""
-    if n_block is not None and (n_block <= 0 or n_block % 4):
-        raise ValueError(f"n_block must be a positive multiple of 4, "
-                         f"got {n_block}")
-    if u.device.type == "cpu":
-        return admit_streamed_plain(bl_in, bl_out, dl_in, dl_out, u, v,
-                                    fresh)
-    if u.device.type != "cuda":
-        raise ValueError(f"no kernel for device {u.device}")
+def _streamed_cuda(bl_in, bl_out, dl_in, dl_out, u, v, fresh, n_block):
     dev = u.device
     n_cap, wb, wd, q = _check_planes(bl_in, bl_out, dl_in, dl_out, u, v, dev)
     if fresh is not None:
@@ -327,6 +339,48 @@ def streamed_admit_row(bl_in, bl_out, dl_in, dl_out, u, v, fresh=None, *,
     _build.check(lib, err, "streamed_admit_kernel")
     bfs_admit_plane_streamed.launches += 1
     return out
+
+
+streamed_admit_op = torch.library.custom_op(
+    "repro_torch::bfs_admit_plane_streamed", _streamed_cpu, mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor bl_in, Tensor bl_out, Tensor dl_in, Tensor dl_out, "
+           "Tensor u, Tensor v, Tensor? fresh, int? n_block) -> Tensor")
+streamed_admit_op.register_kernel("cuda")(_streamed_cuda)
+streamed_admit_op.register_fake(_admit_fake)
+
+
+def bfs_admit_plane_streamed(bl_in, bl_out, dl_in, dl_out, u, v, m_cut=None,
+                             m_total=None, d_cut=None, d_total=None, *,
+                             n_block: int | None = None) -> torch.Tensor:
+    """(n_cap, Q) int8 admit plane, the same as ``bfs_admit_plane``,
+    through the streamed kernel: the cutoffs are pre-combined into one
+    freshness row, ``(m_cut >= m_total) & (d_cut >= d_total)``, and handed
+    to ``streamed_admit_row``."""
+    return streamed_admit_row(bl_in, bl_out, dl_in, dl_out, u, v,
+                              _fresh_row(m_cut, m_total, d_cut, d_total),
+                              n_block=n_block)
+
+
+def streamed_admit_row(bl_in, bl_out, dl_in, dl_out, u, v, fresh=None, *,
+                       n_block: int | None = None) -> torch.Tensor:
+    """The streamed kernel ``csrc/bfs_prune_streamed.cu`` (the op
+    ``streamed_admit_op``) on the pre-combined freshness row ``fresh``
+    (Q,) int32 0/1 or None (persistent blocks, each thread's lanes
+    resident in registers, the vertex axis streamed in ``n_block``-row
+    chunks through a two-stage shared-memory ring filled by
+    ``cp.async``).  ``n_block`` (a multiple of 4) defaults to
+    ``pick_n_block``.  A block's staged lane side takes at most
+    ``LANE_SMEM_BYTES`` (more lanes spread over lane slabs), so any number
+    of lanes fits; only an ``n_block`` whose ring does not fit beside it
+    at these label widths raises.  CPU tensors take
+    ``admit_streamed_plain``.  ``bfs_admit_plane_streamed.launches``
+    counts kernel launches."""
+    if n_block is not None and (n_block <= 0 or n_block % 4):
+        raise ValueError(f"n_block must be a positive multiple of 4, "
+                         f"got {n_block}")
+    return streamed_admit_op(bl_in, bl_out, dl_in, dl_out, u, v, fresh,
+                             n_block)
 
 
 bfs_admit_plane_streamed.launches = 0

@@ -16,7 +16,8 @@ def admit_plane(p: PackedLabels, u, v, m_cut=None, m_total=None,
     kernel for CUDA labels, its plain version for CPU labels.
     ``streaming=True`` routes to the streamed kernel.
 
-    ``m_cut``/``d_cut`` (Qc,) with their totals gate the DL prune per lane.
+    ``m_cut``/``d_cut`` (Qc,) with their totals (ints or 0-d tensors) gate
+    the DL prune per lane.
     ``il`` = (il_in, il_out) ANDs the interval containment prune around the
     kernel's output; ``il_on`` (bool or (Qc,)) gates it.  ``device``
     (default ``"cuda"``) must be where the labels live."""
@@ -31,8 +32,7 @@ def admit_plane(p: PackedLabels, u, v, m_cut=None, m_total=None,
 
     u, v = i32(u), i32(v)
     args = (p.bl_in, p.bl_out, p.dl_in, p.dl_out, u, v, i32(m_cut),
-            None if m_total is None else int(m_total), i32(d_cut),
-            None if d_total is None else int(d_total))
+            m_total, i32(d_cut), d_total)
     if streaming:
         out = bfs_admit_plane_streamed(*args)
     else:

@@ -22,10 +22,19 @@ in L2 and the time is the launch and two dependent round trips.
 instance; ``verdict_coverage`` mirrors the kernels' index
 arithmetic for the CPU tests.
 
-``dbl_query_verdicts`` and ``streamed_verdicts_rows`` launch the kernels
-for CUDA tensors and take ``verdicts_plain`` / ``verdicts_streamed_plain``
-for CPU tensors.  ``dbl_query_verdicts.launches`` and
-``dbl_query_verdicts_streamed.launches`` count kernel launches.
+Each kernel is a torch custom op, ``repro_torch::dbl_query_verdicts`` and
+``repro_torch::dbl_query_verdicts_streamed`` (``verdicts_op``,
+``streamed_verdicts_op``), registered when this module is imported: the
+CUDA implementation launches the kernel, the CPU one is the plain version
+(``verdicts_plain`` / ``verdicts_streamed_plain``), and a fake
+implementation gives the output's shape and dtype, so that
+``torch.export`` traces a phase through the kernel as one graph node and a
+loaded program reaches the same kernel.  The ops take the cutoffs as
+pre-combined 0/1 freshness rows (``freshness_rows``), never as host
+integers, which export would bake into the graph.  ``dbl_query_verdicts``
+and ``streamed_verdicts_rows`` (and ``verdicts_rows``) are the wrappers;
+``dbl_query_verdicts.launches`` and ``dbl_query_verdicts_streamed.launches``
+count kernel launches.
 """
 from __future__ import annotations
 
@@ -131,35 +140,58 @@ def _check(name, t, device, shape=None):
                          f"got {tuple(t.shape)}")
 
 
-def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
-                       m_cut=None, m_total=None, d_cut=None, d_total=None,
-                       il_in=None, il_out=None, *, out_dtype=torch.int32
-                       ) -> torch.Tensor:
-    """(Q,) ``out_dtype`` (int8 or int32) verdicts.
-
-    Planes (n_cap, W) int32 row-major; ``u``/``v`` (Q,) int32.  Optional
-    ``m_cut`` (Q,) int32 with ``m_total`` int: label positives on lanes
-    with ``m_cut < m_total`` degrade to unknown.  Optional ``d_cut`` (Q,)
-    int32 with ``d_total`` int (needs the m-cut pair): lanes with
-    ``d_cut < d_total`` keep only self-positives and BL negatives.
-    Optional ``il_in``/``il_out`` (n_cap, 2*dim) int32 interval planes:
-    containment violations join the negatives on d-fresh lanes.
-    """
+def _check_pairs(m_cut, m_total, d_cut, d_total):
     if (m_cut is None) != (m_total is None) or \
             (d_cut is None) != (d_total is None):
         raise ValueError("pass each cutoff with its total")
     if d_cut is not None and m_cut is None:
         raise ValueError("the tombstone cutoff needs the edge-count cutoff")
-    if (il_in is None) != (il_out is None):
-        raise ValueError("pass il_in and il_out together")
+
+
+def _out_dtype(out_int8: bool) -> torch.dtype:
+    return torch.int8 if out_int8 else torch.int32
+
+
+def _check_out_dtype(out_dtype):
     if out_dtype not in (torch.int8, torch.int32):
         raise ValueError(f"out_dtype must be int8 or int32, got {out_dtype}")
-    if u.device.type == "cpu":
-        return verdicts_plain(dl_in, dl_out, bl_in, bl_out, u, v, m_cut,
-                              m_total, d_cut, d_total, il_in, il_out,
-                              out_dtype)
-    if u.device.type != "cuda":
-        raise ValueError(f"no kernel for device {u.device}")
+
+
+def _cut_totals(cut):
+    """(m_cut, m_total, d_cut, d_total) of pre-combined freshness rows
+    ``cut`` (ncut, Q) or None: each row is a cutoff whose total is 1, so a
+    lane is fresh exactly where its row holds 1."""
+    if cut is None:
+        return None, None, None, None
+    return (cut[0], 1) + ((cut[1], 1) if cut.shape[0] > 1 else (None, None))
+
+
+def _check_cut(cut):
+    if cut is not None and cut.shape[0] not in (1, 2):
+        raise ValueError(f"cut must hold 1 or 2 freshness rows, got "
+                         f"{cut.shape[0]}")
+
+
+# ------------------------------------------------------- the custom ops
+_VERDICTS_SCHEMA = ("(Tensor dl_in, Tensor dl_out, Tensor bl_in, "
+                    "Tensor bl_out, Tensor u, Tensor v, Tensor? cut, "
+                    "Tensor? il_in, Tensor? il_out, bool out_int8) -> Tensor")
+_STREAMED_SCHEMA = ("(Tensor dl_in, Tensor dl_out, Tensor bl_in, "
+                    "Tensor bl_out, Tensor u, Tensor v, Tensor? cut, "
+                    "bool out_int8) -> Tensor")
+
+
+def _verdicts_cpu(dl_in, dl_out, bl_in, bl_out, u, v, cut, il_in, il_out,
+                  out_int8):
+    return verdicts_plain(dl_in, dl_out, bl_in, bl_out, u, v,
+                          *_cut_totals(cut), il_in, il_out,
+                          _out_dtype(out_int8))
+
+
+def _verdicts_cuda(dl_in, dl_out, bl_in, bl_out, u, v, cut, il_in, il_out,
+                   out_int8):
+    """The grid kernel on CUDA tensors; each freshness row is passed as a
+    cutoff with total 1."""
     dev = u.device
     n_cap, wd = dl_in.shape
     wb = bl_in.shape[1]
@@ -170,15 +202,15 @@ def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
     _check("bl_out", bl_out, dev, (n_cap, wb))
     _check("u", u, dev, (q,))
     _check("v", v, dev, (q,))
-    for name, t in (("m_cut", m_cut), ("d_cut", d_cut)):
-        if t is not None:
-            _check(name, t, dev, (q,))
+    if cut is not None:
+        _check("cut", cut, dev, (cut.shape[0], q))
+    m_cut, m_total, d_cut, d_total = _cut_totals(cut)
     wi = 0
     if il_in is not None:
         wi = il_in.shape[1]
         _check("il_in", il_in, dev, (n_cap, wi))
         _check("il_out", il_out, dev, (n_cap, wi))
-    out = torch.empty(q, dtype=out_dtype, device=dev)
+    out = torch.empty(q, dtype=_out_dtype(out_int8), device=dev)
     if q == 0:
         return out
     g = verdict_geometry(q, wd, wb, _build.sm_count(dev), streamed=False,
@@ -191,11 +223,58 @@ def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
             p(dl_in), p(dl_out), wd, p(bl_in), p(bl_out), wb, n_cap, p(u),
             p(v), q, p(m_cut), int(m_total or 0), p(d_cut),
             int(d_total or 0), p(il_in), p(il_out), wi, p(out),
-            int(out_dtype == torch.int8), int(_vec(g)), g.threads,
-            g.blocks, stream)
+            int(out_int8), int(_vec(g)), g.threads, g.blocks, stream)
     _build.check(lib, err, "verdicts_kernel")
     dbl_query_verdicts.launches += 1
     return out
+
+
+def _verdicts_fake(dl_in, dl_out, bl_in, bl_out, u, v, cut, il_in, il_out,
+                   out_int8):
+    return u.new_empty(u.shape, dtype=_out_dtype(out_int8))
+
+
+verdicts_op = torch.library.custom_op(
+    "repro_torch::dbl_query_verdicts", _verdicts_cpu, mutates_args=(),
+    device_types="cpu", schema=_VERDICTS_SCHEMA)
+verdicts_op.register_kernel("cuda")(_verdicts_cuda)
+verdicts_op.register_fake(_verdicts_fake)
+
+
+def verdicts_rows(dl_in, dl_out, bl_in, bl_out, u, v, cut=None, il_in=None,
+                  il_out=None, *, out_dtype=torch.int32) -> torch.Tensor:
+    """The grid kernel ``csrc/dbl_query.cu`` (the op ``verdicts_op``) on
+    pre-combined freshness rows ``cut`` (ncut, Q) int32 0/1 or None: row 0
+    gates label positives, row 1 keeps only self-positives and BL
+    negatives where it is 0.  CPU tensors take ``verdicts_plain``."""
+    _check_out_dtype(out_dtype)
+    _check_cut(cut)
+    if (il_in is None) != (il_out is None):
+        raise ValueError("pass il_in and il_out together")
+    return verdicts_op(dl_in, dl_out, bl_in, bl_out, u, v, cut, il_in,
+                       il_out, out_dtype == torch.int8)
+
+
+def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
+                       m_cut=None, m_total=None, d_cut=None, d_total=None,
+                       il_in=None, il_out=None, *, out_dtype=torch.int32
+                       ) -> torch.Tensor:
+    """(Q,) ``out_dtype`` (int8 or int32) verdicts.
+
+    Planes (n_cap, W) int32 row-major; ``u``/``v`` (Q,) int32.  Optional
+    ``m_cut`` (Q,) int32 with ``m_total`` (an int or a 0-d tensor): label
+    positives on lanes with ``m_cut < m_total`` degrade to unknown.
+    Optional ``d_cut`` (Q,) int32 with ``d_total`` (needs the m-cut pair):
+    lanes with ``d_cut < d_total`` keep only self-positives and BL
+    negatives.  Optional ``il_in``/``il_out`` (n_cap, 2*dim) int32
+    interval planes: containment violations join the negatives on d-fresh
+    lanes.  The cutoffs are pre-combined into freshness rows
+    (``freshness_rows``) and handed to ``verdicts_rows``.
+    """
+    _check_pairs(m_cut, m_total, d_cut, d_total)
+    return verdicts_rows(dl_in, dl_out, bl_in, bl_out, u, v,
+                         freshness_rows(m_cut, m_total, d_cut, d_total),
+                         il_in, il_out, out_dtype=out_dtype)
 
 
 dbl_query_verdicts.launches = 0
@@ -204,14 +283,11 @@ dbl_query_verdicts.launches = 0
 # ------------------------------------------------------------- streamed
 def freshness_rows(m_cut=None, m_total=None, d_cut=None, d_total=None
                    ) -> torch.Tensor | None:
-    """The streamed kernels' pre-combined cutoffs, as the reference wrapper
-    forms them: (ncut, Q) int32 0/1 rows, row 0 = ``m_cut >= m_total`` and
-    row 1 = ``d_cut >= d_total``; None when no cutoff is given (ncut 0)."""
-    if (m_cut is None) != (m_total is None) or \
-            (d_cut is None) != (d_total is None):
-        raise ValueError("pass each cutoff with its total")
-    if d_cut is not None and m_cut is None:
-        raise ValueError("the tombstone cutoff needs the edge-count cutoff")
+    """The kernels' pre-combined cutoffs, as the reference's streamed
+    wrapper forms them: (ncut, Q) int32 0/1 rows, row 0 = ``m_cut >=
+    m_total`` and row 1 = ``d_cut >= d_total``; None when no cutoff is
+    given (ncut 0).  The totals may be ints or 0-d tensors."""
+    _check_pairs(m_cut, m_total, d_cut, d_total)
     if m_cut is None:
         return None
     rows = [m_cut >= m_total]
@@ -235,6 +311,55 @@ def verdicts_streamed_plain(dl_in, dl_out, bl_in, bl_out, u, v, cut=None,
     return verd.to(out_dtype)
 
 
+def _streamed_cpu(dl_in, dl_out, bl_in, bl_out, u, v, cut, out_int8):
+    return verdicts_streamed_plain(dl_in, dl_out, bl_in, bl_out, u, v, cut,
+                                   _out_dtype(out_int8))
+
+
+def _streamed_cuda(dl_in, dl_out, bl_in, bl_out, u, v, cut, out_int8):
+    dev = u.device
+    n_cap, wd = dl_in.shape
+    wb = bl_in.shape[1]
+    q = u.shape[0]
+    _check("dl_in", dl_in, dev)
+    _check("dl_out", dl_out, dev, (n_cap, wd))
+    _check("bl_in", bl_in, dev, (n_cap, wb))
+    _check("bl_out", bl_out, dev, (n_cap, wb))
+    _check("u", u, dev, (q,))
+    _check("v", v, dev, (q,))
+    ncut = 0
+    if cut is not None:
+        ncut = cut.shape[0]
+        _check("cut", cut, dev, (ncut, q))
+    out = torch.empty(q, dtype=_out_dtype(out_int8), device=dev)
+    if q == 0:
+        return out
+    g = verdict_geometry(q, wd, wb, _build.sm_count(dev), streamed=True,
+                         aligned=_aligned(dl_in, dl_out, bl_in, bl_out))
+    lib = _build.load("dbl_query_streamed")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        err = lib.dbl_query_verdicts_streamed(
+            p(dl_in), p(dl_out), wd, p(bl_in), p(bl_out), wb, n_cap, p(u),
+            p(v), q, p(cut), ncut, p(out), int(out_int8), int(_vec(g)),
+            g.threads, g.blocks, stream)
+    _build.check(lib, err, "streamed_verdicts_kernel")
+    dbl_query_verdicts_streamed.launches += 1
+    return out
+
+
+def _streamed_fake(dl_in, dl_out, bl_in, bl_out, u, v, cut, out_int8):
+    return u.new_empty(u.shape, dtype=_out_dtype(out_int8))
+
+
+streamed_verdicts_op = torch.library.custom_op(
+    "repro_torch::dbl_query_verdicts_streamed", _streamed_cpu,
+    mutates_args=(), device_types="cpu", schema=_STREAMED_SCHEMA)
+streamed_verdicts_op.register_kernel("cuda")(_streamed_cuda)
+streamed_verdicts_op.register_fake(_streamed_fake)
+
+
 def dbl_query_verdicts_streamed(dl_in, dl_out, bl_in, bl_out, u, v,
                                 m_cut=None, m_total=None, d_cut=None,
                                 d_total=None, *, out_dtype=torch.int32
@@ -250,51 +375,16 @@ def dbl_query_verdicts_streamed(dl_in, dl_out, bl_in, bl_out, u, v,
 
 def streamed_verdicts_rows(dl_in, dl_out, bl_in, bl_out, u, v, cut=None, *,
                            out_dtype=torch.int32) -> torch.Tensor:
-    """The streamed kernel ``csrc/dbl_query_streamed.cu`` on pre-combined
-    freshness rows ``cut`` (ncut, Q) int32 0/1 or None (persistent blocks
-    walking chunks of the query axis, see ``verdict_geometry``).
-    CPU tensors take ``verdicts_streamed_plain``.
-    ``dbl_query_verdicts_streamed.launches`` counts kernel launches."""
-    if out_dtype not in (torch.int8, torch.int32):
-        raise ValueError(f"out_dtype must be int8 or int32, got {out_dtype}")
-    if cut is not None and cut.shape[0] not in (1, 2):
-        raise ValueError(f"cut must hold 1 or 2 freshness rows, got "
-                         f"{cut.shape[0]}")
-    if u.device.type == "cpu":
-        return verdicts_streamed_plain(dl_in, dl_out, bl_in, bl_out, u, v,
-                                       cut, out_dtype)
-    if u.device.type != "cuda":
-        raise ValueError(f"no kernel for device {u.device}")
-    dev = u.device
-    n_cap, wd = dl_in.shape
-    wb = bl_in.shape[1]
-    q = u.shape[0]
-    _check("dl_in", dl_in, dev)
-    _check("dl_out", dl_out, dev, (n_cap, wd))
-    _check("bl_in", bl_in, dev, (n_cap, wb))
-    _check("bl_out", bl_out, dev, (n_cap, wb))
-    _check("u", u, dev, (q,))
-    _check("v", v, dev, (q,))
-    ncut = 0
-    if cut is not None:
-        ncut = cut.shape[0]
-        _check("cut", cut, dev, (ncut, q))
-    out = torch.empty(q, dtype=out_dtype, device=dev)
-    if q == 0:
-        return out
-    g = verdict_geometry(q, wd, wb, _build.sm_count(dev), streamed=True,
-                         aligned=_aligned(dl_in, dl_out, bl_in, bl_out))
-    lib = _build.load("dbl_query_streamed")
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    p = _build.ptr
-    with torch.cuda.device(dev):
-        err = lib.dbl_query_verdicts_streamed(
-            p(dl_in), p(dl_out), wd, p(bl_in), p(bl_out), wb, n_cap, p(u),
-            p(v), q, p(cut), ncut, p(out), int(out_dtype == torch.int8),
-            int(_vec(g)), g.threads, g.blocks, stream)
-    _build.check(lib, err, "streamed_verdicts_kernel")
-    dbl_query_verdicts_streamed.launches += 1
-    return out
+    """The streamed kernel ``csrc/dbl_query_streamed.cu`` (the op
+    ``streamed_verdicts_op``) on pre-combined freshness rows ``cut``
+    (ncut, Q) int32 0/1 or None (persistent blocks walking chunks of the
+    query axis, see ``verdict_geometry``).  CPU tensors take
+    ``verdicts_streamed_plain``.  ``dbl_query_verdicts_streamed.launches``
+    counts kernel launches."""
+    _check_out_dtype(out_dtype)
+    _check_cut(cut)
+    return streamed_verdicts_op(dl_in, dl_out, bl_in, bl_out, u, v, cut,
+                                out_dtype == torch.int8)
 
 
 dbl_query_verdicts_streamed.launches = 0

@@ -30,7 +30,8 @@ def verdicts_device(p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
                     streaming: bool = False) -> torch.Tensor:
     """(Q,) verdicts on the planes' device: the kernel for CUDA tensors,
     its plain version for CPU tensors.  ``m_cut``/``d_cut`` (Q,) with their
-    totals thread the edge-count and tombstone cutoffs; ``il`` is the
+    totals (ints or 0-d tensors) thread the edge-count and tombstone
+    cutoffs; ``il`` is the
     optional ``(il_in, il_out)`` interval operand.  ``streaming=True``
     routes to the streamed kernel; with ``il`` it warns
     ``StreamILFallbackWarning`` and routes to the grid kernel instead."""
@@ -47,9 +48,9 @@ def verdicts_device(p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
             _on(u, dev).to(i32).contiguous(),
             _on(v, dev).to(i32).contiguous(),
             None if m_cut is None else _on(m_cut, dev).to(i32).contiguous(),
-            None if m_total is None else int(m_total),
+            m_total,
             None if d_cut is None else _on(d_cut, dev).to(i32).contiguous(),
-            None if d_total is None else int(d_total))
+            d_total)
     if streaming:
         return dbl_query_verdicts_streamed(*args, out_dtype=out_dtype)
     il_in, il_out = (None, None) if il is None else il

@@ -35,7 +35,16 @@ pruned BFS.  The engine keeps that pipeline on the device:
   planes (off while the labels are dirty), and its insert hook runs with
   every insert; ``plane_repr="packed"`` runs the insert and rebuild
   fixpoints on int32 words and ``frontier_dtype="packed"`` the residue BFS
-  on words of 32 query lanes, all bitwise equal to the defaults.
+  on words of 32 query lanes, all bitwise equal to the defaults;
+- **AOT cold starts**: ``aot_warmup(index, cache_dir)`` loads the label
+  phase and, for each chunk bucket, the coalesced residue's prologue and
+  BFS round as ``torch.export`` programs from a disk cache
+  (``serve.aot``), and exports the ones it misses for the next process.
+  ``submit`` calls the label phase through ``_label_phase`` and the
+  residue through ``_coal_phases[bucket]``: the live methods, or
+  dispatchers that route exact input shapes and branches to the loaded
+  programs.  The BFS loop stays on the host between rounds.  Answers are
+  bitwise the same either way.
 
 **Query-axis serving** (``mesh=``, a ``distributed.query_mesh``; SPMD
 over ``torch.distributed``, every rank holding the whole replicated index
@@ -63,8 +72,6 @@ re-bind.  Answers and stats are bitwise equal to the replicated engine's.
 sparse halo (``core.halo``), ``hub_count`` gives its plans a hub lane and
 ``halo_caps`` overrides the sparse capacities; ``halo_stats()`` reads the
 modeled halo bytes and rounds (zero on the other layouts).
-
-The AOT cache raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -86,7 +93,7 @@ from repro_torch.core import query as Q
 from repro_torch.core import update as U
 from repro_torch.core.propagate import check_halo_mode, check_plane_repr
 from repro_torch.core.dbl import (DBLIndex, LabelSaturationWarning,
-                                  _saturation_message, not_ported)
+                                  _saturation_message)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bfs_prune.ops import admit_plane
 from repro_torch.kernels.dbl_query.ops import (StreamILFallbackWarning,
@@ -330,6 +337,15 @@ class QueryEngine:
         self.donate = bool(donate)
         self.stats = EngineStats()
         self.last_rebuild_info: dict | None = None   # set by rebuild()
+        # batches pad to a multiple of bfs_chunk (the kernels mask their
+        # ragged tail, so q_block needs no padding)
+        self._granule = self.bfs_chunk
+        # the dispatch points of the query phases: the live methods, or
+        # aot_warmup's ShapeDispatchers over them; _coal_phases maps a
+        # chunk bucket to its (prologue, round) pair
+        self._label_phase = self.label_phase
+        self._coal_phases: dict = {}
+        self.aot_cache = None                        # set by aot_warmup()
         # the sharded layout's plan for the bound edges; rebuild() hands
         # its plan to the re-bind through _plan_override
         self._plan: PL.ShardPlan | None = None
@@ -524,9 +540,9 @@ class QueryEngine:
         so the hits are the same)."""
         g, p, il = index.graph, index.packed, index.il
         n_cap = index.n_cap
-        live_lane = uu < n_cap
-        uu_safe = uu.clamp(max=n_cap - 1)
         if self.vertex_mesh is not None:
+            live_lane = uu < n_cap
+            uu_safe = uu.clamp(max=n_cap - 1)
             rows, il_rows = self._sharded_rows(p, il, uu_safe, vv)
             verd = Q.cut_verdicts_rows(rows, uu_safe, vv, m_cut, g.m,
                                        not d_stale, il_rows=il_rows)
@@ -537,6 +553,38 @@ class QueryEngine:
                 not d_stale, max_iters=self.max_iters,
                 frontier_dtype=self.frontier_dtype)
             return ((verd == 1) & live_lane) | hit
+        c = uu.shape[0]
+        prologue, round_ = self._coal_phases.get(
+            c, (self.coalesced_prologue, self.coalesced_round))
+        known, carry, consts, go = prologue(self._phase_graph(g), p, il, uu,
+                                            vv, m_cut, d_stale)
+        it = 0
+        while it < self.max_iters and bool(go):
+            carry, go = round_(carry, consts)
+            it += 1
+        return known | Q.bfs_hits(carry, c, self.frontier_dtype)
+
+    @staticmethod
+    def _phase_graph(g: G.Graph) -> G.Graph:
+        """``g`` with ``m`` and ``del_epoch`` as 0-d int32 tensors, filled
+        on its device (no copy from the host): the residue phases read
+        them as inputs, so an exported program serves every edge count."""
+        def scalar(x):
+            return torch.full((), x, dtype=torch.int32, device=g.device)
+        return replace(g, m=scalar(g.m), del_epoch=scalar(g.del_epoch))
+
+    def coalesced_prologue(self, g: G.Graph, p: Q.PackedLabels, il, uu, vv,
+                           m_cut, d_stale: bool, lazy_cut: bool = True):
+        """The replicated residue up to its first BFS round: the re-check
+        verdicts (the cutoff verdict kernel), the admit plane (the admit
+        kernel under ``bfs_kernel``) and ``Q.bfs_prologue``.  Returns
+        (lanes the re-check answers True, carry, consts, go).  Only
+        tensors come in (``g`` as ``_phase_graph`` gives it) and go out,
+        so that ``torch.export`` takes it whole; ``lazy_cut`` as in
+        ``Q.bfs_prologue``."""
+        n_cap = p.dl_in.shape[0]
+        live_lane = uu < n_cap
+        uu_safe = uu.clamp(max=n_cap - 1)
         verd = self._verdicts(p, uu_safe, vv, m_cut, g.m, d_stale, il)
         need = live_lane & (verd == -1)
         uu2 = torch.where(need, uu, torch.full_like(uu, n_cap))
@@ -548,10 +596,15 @@ class QueryEngine:
                                 out_dtype=torch.int8,
                                 device=self.device.type,
                                 streaming=self.streaming)
-        hit = Q.pruned_bfs(g, p, uu2, vv, admit, m_cut, not d_stale, il,
-                           n_cap=n_cap, max_iters=self.max_iters,
-                           frontier_dtype=self.frontier_dtype)
-        return ((verd == 1) & live_lane) | hit
+        carry, consts, go = Q.bfs_prologue(
+            g, p, uu2, vv, admit, m_cut, not d_stale, il, n_cap=n_cap,
+            frontier_dtype=self.frontier_dtype, lazy_cut=lazy_cut)
+        return (verd == 1) & live_lane, carry, consts, go
+
+    def coalesced_round(self, carry, consts, scan_steps: int | None = None):
+        """One BFS round of the replicated residue (``Q.bfs_round``)."""
+        return Q.bfs_round(carry, consts, frontier_dtype=self.frontier_dtype,
+                           scan_steps=scan_steps)
 
     def insert_impl(self, idx: DBLIndex, ns, nd) -> tuple[DBLIndex, bool]:
         """Alg 3 on the bound index: the fused DL/BL update, then the "il"
@@ -591,12 +644,15 @@ class QueryEngine:
         return self.bfs_chunk
 
     # ------------------------------------------------------------ queries
+    def _padded(self, q: int) -> int:
+        c = self._granule
+        return max(c, -(-int(q) // c) * c)
+
     def _pad_queries(self, u, v):
         u = np.asarray(u, np.int32).ravel()
         v = np.asarray(v, np.int32).ravel()
         q = u.shape[0]
-        c = self.bfs_chunk
-        qp = max(c, -(-q // c) * c)
+        qp = self._padded(q)
         if qp != q:
             # pad with self-queries on vertex 0: verdict +1, never unknown
             u = np.pad(u, (0, qp - q))
@@ -610,8 +666,8 @@ class QueryEngine:
         current epoch and edge count and survive later ``insert()``s."""
         self._check_device(index)
         uj, vj, q = self._pad_queries(u, v)
-        answers, order, u_c, v_c, n_unknown, counts = self.label_phase(
-            index.packed, uj, vj, index.is_dirty, il=index.il)
+        answers, order, u_c, v_c, n_unknown, counts = self._label_phase(
+            index.packed, uj, vj, index.is_dirty, index.il)
         if self._index is not None and index is self._index:
             tag = dict(lineage=self._lineage, epoch=self.epoch,
                        m_at_submit=self._m_now)
@@ -875,8 +931,87 @@ class QueryEngine:
         self.stats.quiet_pair_rounds = d["quiet_pair_rounds"]
         return d
 
-    def aot_warmup(self, index, cache_dir, **kw):
-        raise not_ported("the AOT executable cache", "queue 1, item 15")
+    # ------------------------------------------------------------- AOT
+    def aot_warmup(self, index: DBLIndex, cache_dir, *,
+                   batch_sizes=(1,), bfs_buckets=None) -> "QueryEngine":
+        """Warm the query phases from an AOT disk cache of
+        ``torch.export`` programs (``serve.aot``): the label phase for each
+        batch size (padded to the batch granule) and, for each chunk
+        bucket, the coalesced residue's prologue and one BFS round.  Hits
+        go behind the dispatch points; misses export this process's phases
+        so that the next process hits.  The programs are exported clean
+        (``d_stale`` False) with every lane fresh; any other branch or
+        shape runs the live phase.  Answers are bitwise the same either
+        way.  Replicated layout only: a mesh engine's collectives are bound
+        to its process group, so mesh engines refuse."""
+        from repro_torch.serve.aot import AOTCache, ShapeDispatcher
+        if self.vertex_mesh is not None or self.mesh is not None:
+            raise ValueError("the AOT cache supports the replicated "
+                             "single-process layout only")
+        self._check_device(index)
+        cache = AOTCache(cache_dir)
+        self.aot_cache = cache
+        # every knob a program bakes in beyond its input shapes is in the
+        # key: a hit under other knobs would serve the old semantics (a
+        # smaller max_iters, another frontier layout).  The families and
+        # the interval draw are too: dim-equal planes from another rank
+        # seed have the same shapes.
+        config = {"max_iters": self.max_iters, "q_block": self.q_block,
+                  "bfs_chunk": self.bfs_chunk, "bfs_kernel": self.bfs_kernel,
+                  "streaming": self.streaming,
+                  "frontier_dtype": self.frontier_dtype,
+                  "out_dtype": self.out_dtype,
+                  "plane_repr": self.plane_repr,
+                  "halo_mode": self.halo_mode,
+                  "hub_count": self.hub_count,
+                  "halo_caps": None if self.halo_caps is None
+                  else list(self.halo_caps),
+                  "families": list(index.families),
+                  "il_dim": index.il_dim,
+                  "il_seed": None if index.il_seed is None
+                  else int(index.il_seed)}
+        # a streaming engine given interval planes warns here, hit or miss
+        self._verdict_streaming(index.il)
+
+        def entry(tag, dispatcher, fn, args):
+            key = cache.key(tag, self.backend, args, config=config)
+            prog = cache.load(key, tag)
+            if prog is None:
+                cache.store(key, fn, args, tag)
+            else:
+                dispatcher.add(args, prog)
+
+        if not isinstance(self._label_phase, ShapeDispatcher):
+            self._label_phase = ShapeDispatcher(self._label_phase)
+        i32 = dict(dtype=torch.int32, device=index.device)
+        for q in batch_sizes:
+            qp = self._padded(q)
+            entry("label", self._label_phase, self.label_phase,
+                  (index.packed, torch.zeros(qp, **i32),
+                   torch.zeros(qp, **i32), False, index.il))
+        g = self._phase_graph(index.graph)
+        # a round's segment-OR scan covers a run of every edge slot
+        steps = g.m_cap.bit_length()
+        for chunk in (bfs_buckets or self._chunk_buckets()):
+            c = self._bucket_for(chunk)
+            if c not in self._coal_phases:
+                self._coal_phases[c] = (
+                    ShapeDispatcher(self.coalesced_prologue),
+                    ShapeDispatcher(self.coalesced_round))
+            prologue, round_ = self._coal_phases[c]
+            args = (g, index.packed, index.il,
+                    torch.full((c,), index.n_cap, **i32),
+                    torch.zeros(c, **i32),
+                    torch.full((c,), Q.FRESH_CUT, **i32), False)
+            exported = functools.partial(self.coalesced_prologue,
+                                         lazy_cut=False)
+            entry(f"coalesced-{c}", prologue, exported, args)
+            # the round's inputs as a loaded prologue hands them over
+            _, carry, consts, _ = exported(*args)
+            entry(f"bfs-round-{c}", round_,
+                  functools.partial(self.coalesced_round, scan_steps=steps),
+                  (carry, consts))
+        return self
 
     def check_saturation(self, *, warn: bool = True) -> int:
         """Drain the deferred per-insert saturation flags and return how

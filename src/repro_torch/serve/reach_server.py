@@ -18,9 +18,12 @@ query boundary.
 ``vertex_mesh``): one process a shard, every rank making the same calls.
 ``mesh=`` (a ``distributed.query_mesh``) serves a replicated index with
 each batch's label phase split over the ranks, again every rank making
-the same calls.
+the same calls.  ``aot_cache=DIR`` warms the engine's query phases from a
+disk cache of ``torch.export`` programs (``serve.aot``) and fills it on
+a miss; ``engine_stats()["aot"]`` counts its hits, misses and stores.
 
-    python -m repro_torch.serve.reach_server [--device cuda|cpu] ...
+    python -m repro_torch.serve.reach_server [--device cuda|cpu] \
+        [--aot-cache DIR] ...
     torchrun --nproc_per_node N -m repro_torch.serve.reach_server \
         --vertex-shards N [--device cpu] ...
 """
@@ -92,7 +95,8 @@ class ReachabilityServer:
                  rebuild_mode: str = "auto",
                  flush_policy: str | None = None,
                  flush_deadline_ms: float = 25.0,
-                 flush_watermark: int = 256, device=None):
+                 flush_watermark: int = 256, device=None,
+                 aot_cache: str | None = None):
         if engine is not None:
             if engine.index is not None and index is not None \
                     and engine.index is not index:
@@ -112,6 +116,10 @@ class ReachabilityServer:
                 flush_watermark=flush_watermark, device=device)
         if self.engine.index is None:
             raise ValueError("server needs an index (directly or via engine)")
+        if aot_cache is not None:
+            # cold start: hits put loaded programs behind the engine's
+            # phases, misses export this process's for the next start
+            self.engine.aot_warmup(self.engine.index, aot_cache)
         if rebuild_dead_ratio is not None and not 0 < rebuild_dead_ratio <= 1:
             raise ValueError("rebuild_dead_ratio must be in (0, 1] or None")
         if rebuild_mode not in ("full", "delta", "auto"):
@@ -230,7 +238,8 @@ class ReachabilityServer:
     def engine_stats(self) -> dict:
         """The engine's counters and configuration, with the halo
         telemetry (all zero unless vertex-sharded) under ``halo`` and its
-        headline three at the top level, read fresh."""
+        headline three at the top level, read fresh, and with an AOT cache
+        its hits, misses and stores under ``aot``."""
         d = self.engine.stats.as_dict()
         d["backend"] = self.engine.backend
         d["device"] = str(self.engine.device)
@@ -247,6 +256,10 @@ class ReachabilityServer:
                      "hub_count": self.engine.hub_count}
         d.update({k: halo[k] for k in
                   ("halo_bytes", "halo_rounds", "quiet_pair_rounds")})
+        if self.engine.aot_cache is not None:
+            d["aot"] = {"hits": self.engine.aot_cache.hits,
+                        "misses": self.engine.aot_cache.misses,
+                        "stores": self.engine.aot_cache.stores}
         return d
 
 
@@ -275,8 +288,12 @@ def _vertex_world(shards: int, device):
 def main(argv=None):
     """Serving driver: build an index over a generated power-law graph,
     run an interleaved query/insert stream, print stats as JSON.
-    ``--vertex-shards N`` serves it vertex-sharded over N ranks, one
-    process each (``torchrun --nproc_per_node N``); rank 0 prints."""
+    ``--aot-cache DIR`` round-trips the engine's label phase and residue
+    programs through a ``torch.export`` disk cache: run twice with the
+    same flags and the second start loads every program it stored (watch
+    the ``aot`` counters).  ``--vertex-shards N`` serves it vertex-sharded
+    over N ranks, one process each (``torchrun --nproc_per_node N``);
+    rank 0 prints."""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__)
@@ -289,6 +306,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; pass cpu to run "
                          "on the CPU)")
+    ap.add_argument("--aot-cache", default=None,
+                    help="directory for the engine's torch.export'd "
+                         "phases; a start with a warm cache loads them "
+                         "instead of tracing")
     ap.add_argument("--flush-policy", default=None,
                     choices=["deadline", "watermark"])
     ap.add_argument("--vertex-shards", type=int, default=0,
@@ -319,7 +340,8 @@ def _serve(a, vmesh):
     idx = DBLIndex.build(g, n_cap=a.n, k=a.k, k_prime=a.k, device=dev)
     t0 = time.perf_counter()
     srv = ReachabilityServer(idx, backend=a.backend, vertex_mesh=vmesh,
-                             flush_policy=a.flush_policy)
+                             flush_policy=a.flush_policy,
+                             aot_cache=a.aot_cache)
     rng = np.random.default_rng(0)
     for r in range(a.rounds):
         u = rng.integers(0, a.n, a.batch).astype(np.int32)

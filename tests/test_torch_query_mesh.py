@@ -340,7 +340,8 @@ def test_mesh_refuses_a_shard_and_the_aot_cache():
     with pytest.raises(ValueError, match="vertex_mesh="):
         TD.distributed_label_verdicts(shard, _q_mesh(), [0], [1])
     eng = TEngine(idx, mesh=_q_mesh())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # the reference's refusal: the cache serves the replicated layout only
+    with pytest.raises(ValueError, match="replicated single-process"):
         eng.aot_warmup(idx, "cache")
 
 
