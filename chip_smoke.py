@@ -686,9 +686,9 @@ def kernel_timings(dev):
     import torch
     from repro_torch.core.query import FRESH_CUT
     from repro_torch.kernels.bfs_prune.bfs_prune import (
-        admit_plain, admit_row, admit_streamed_plain, streamed_admit_row)
+        admit_op, admit_plain, admit_streamed_plain, streamed_admit_row)
     from repro_torch.kernels.dbl_query.dbl_query import (
-        freshness_rows, streamed_verdicts_rows, verdicts_plain, verdicts_rows,
+        freshness_rows, streamed_verdicts_rows, verdicts_op, verdicts_plain,
         verdicts_streamed_plain)
     rng = np.random.default_rng(1)
     n, w = LJ_N, 2
@@ -716,7 +716,7 @@ def kernel_timings(dev):
     rows1 = freshness_rows(**cuts)
     out["verdicts_kernel"] = timed(
         "verdicts_kernel", f"n_cap={n} W=2 Q={q} int8 out, m_cut",
-        lambda: verdicts_rows(*p, u, v, rows1, out_dtype=torch.int8),
+        lambda: verdicts_op(*p, u, v, rows1, None, None, True),
         lambda: verdicts_plain(*p, u, v, **cuts, out_dtype=torch.int8),
         nbytes, ops, floor_q=q)
 
@@ -734,7 +734,7 @@ def kernel_timings(dev):
     fresh = freshness_rows(**cuts)[0]
     out["admit_kernel"] = timed(
         "admit_kernel", f"n_cap={n} W=2 Qc={q} int8 out, m_cut",
-        lambda: admit_row(*args, fresh),
+        lambda: admit_op(*args, fresh),
         lambda: admit_plain(*args, **cuts), nbytes, ops, floor_q=n * q)
 
     # the dynamic phase's dirty label phase: both freshness rows (all

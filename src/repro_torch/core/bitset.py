@@ -9,10 +9,10 @@ on the CPU), so words are compared with ``!= 0`` and never ordered, and
 last word stay zero.
 
 The word planes have a segment-OR algebra (``sorted_segment_or``,
-``scatter_or``) for the packed fixpoint and the packed BFS: torch has no
-OR scatter reduction, so it is the reference's segmented inclusive scan
-over dst-sorted rows, a Hillis–Steele log-step scan of the
-``(flag, value)`` monoid, then one scatter of each segment's tail.
+``scatter_or``) for the packed fixpoint: torch has no OR scatter
+reduction, so it is the reference's segmented inclusive scan over
+dst-sorted rows, a Hillis–Steele log-step scan of the ``(flag, value)``
+monoid, then one scatter of each segment's tail.
 """
 from __future__ import annotations
 
@@ -107,49 +107,11 @@ def segment_or_flags(vals: torch.Tensor, start: torch.Tensor,
     return out[:num_segments]
 
 
-def segment_or_static(vals: torch.Tensor, seg_ids: torch.Tensor,
-                      num_segments: int, steps: int) -> torch.Tensor:
-    """``sorted_segment_or`` with the scan's depth fixed at ``steps``, and
-    no host read or branch on the data: the form ``torch.export`` takes
-    where E depends on the data.  One spare row (id ``num_segments``,
-    dropped) closes the rows, so that an empty input needs no case of its
-    own, and each step gathers element ``i - d`` instead of slicing, so
-    that every size stays the one symbol E (slices of E by growing ``d``
-    nest min/max terms that the exporter's symbolic shapes cannot
-    simplify in time).  Any ``steps`` with ``2**steps`` at least the
-    longest run of equal ids gives ``sorted_segment_or``'s words: a later
-    step's carry stops at the segment's start flag."""
-    dev = vals.device
-    vals = torch.cat([vals, vals.new_zeros((1, vals.shape[-1]))])
-    seg_ids = torch.cat([seg_ids, seg_ids.new_full((1,), num_segments)])
-    idx = torch.arange(seg_ids.shape[0], device=dev)
-    last = seg_ids.shape[0] - 1
-    flag = (idx == 0) | (seg_ids != seg_ids[(idx - 1).clamp(min=0)])
-    tail = (idx == last) | (seg_ids != seg_ids[(idx + 1).clamp(max=last)])
-    acc = vals
-    d = 1
-    for _ in range(steps):
-        back = idx >= d
-        j = (idx - d).clamp(min=0)
-        acc = torch.where((flag | ~back)[:, None], acc, acc[j] | acc)
-        flag = flag | (back & flag[j])
-        d *= 2
-    keep = tail & (seg_ids >= 0) & (seg_ids < num_segments)
-    out = torch.zeros((num_segments + 1, vals.shape[-1]), dtype=vals.dtype,
-                      device=dev)
-    out[torch.where(keep, seg_ids.long(), num_segments)] = acc
-    return out[:num_segments]
-
-
 def sorted_segment_or(vals: torch.Tensor, seg_ids: torch.Tensor,
-                      num_segments: int, steps: int | None = None
-                      ) -> torch.Tensor:
+                      num_segments: int) -> torch.Tensor:
     """Segment-OR of (E, W) word rows by non-decreasing (E,) segment ids
     (the word-plane twin of a segment-max on bool planes).  Ids at or
-    beyond ``num_segments`` are dropped.  ``steps`` fixes the scan's depth
-    (``segment_or_static``); None reads it from the data."""
-    if steps is not None:
-        return segment_or_static(vals, seg_ids, num_segments, steps)
+    beyond ``num_segments`` are dropped."""
     if vals.shape[0] == 0:
         return torch.zeros((num_segments, vals.shape[-1]), dtype=vals.dtype,
                            device=vals.device)

@@ -261,19 +261,16 @@ def bfs_prologue(g: Graph, p: PackedLabels | None, u: torch.Tensor,
                  v: torch.Tensor, admit: torch.Tensor | None = None,
                  m_cut: torch.Tensor | None = None,
                  dl_clean: bool | None = None, il=None, *, n_cap: int,
-                 frontier_dtype: str = "int8", lazy_cut: bool = True):
+                 frontier_dtype: str = "int8"):
     """Everything :func:`pruned_bfs` does before its first round, as
     ``(carry, consts, go)``: the loop-carried tensors (frontier, visited,
     hit; words on the packed path), the loop-invariant ones (the admit
-    plane, the edges as each round reads them, the lanes' targets) and the
-    0-d bool that the host reads to decide on the first round.  Tensors
-    only, with ``g.m`` and ``g.del_epoch`` read as ints or 0-d tensors, so
-    that ``torch.export`` can take it whole.
-
-    The packed path builds the per-edge cutoff words only when some lane
-    is stale, which costs one host read (``lazy_cut``); ``lazy_cut=False``
-    always builds them when ``m_cut`` is given (an exported prologue,
-    which cannot read the host), and the hits are the same."""
+    plane, the edges as :func:`relax_edges` gives them, the lanes' cutoffs
+    and targets) and the 0-d bool that the host reads to decide on the
+    first round.  Tensors only, with ``g.m`` and ``g.del_epoch`` read as
+    ints or 0-d tensors, and no host read, so that ``torch.export`` can
+    take it whole.  ``consts[1]`` is the (m_cap,) edge tails and
+    ``consts[4]`` ``m_cut`` on both paths."""
     dev = u.device
     qc = u.shape[0]
     live = edge_mask(g)
@@ -291,26 +288,14 @@ def bfs_prologue(g: Graph, p: PackedLabels | None, u: torch.Tensor,
     frontier = ids[:, None] == u[None, :].long()        # (n_cap, Qc)
     lanes = torch.arange(qc, device=dev)
     v_safe = v.clamp(0, n_cap - 1).long()
+    src, dst, live = relax_edges(g.src, g.dst, live, n_cap)
     if frontier_dtype == "packed":
-        # the dst-argsort and the packed per-edge cutoff, hoisted out of
-        # the loop
         lane_mask = bitset.pad_mask(qc, dev)
-        live = live & (g.dst >= 0) & (g.dst < n_cap)
-        order = torch.argsort(g.dst)
-        cut_ws = None
-        if m_cut is not None and (not lazy_cut
-                                  or bool((m_cut < g.m).any())):
-            # lanes whose cutoff reaches g.m see every live edge: the
-            # packed cut is all ones there, and needed only when some lane
-            # is stale
-            cut_ws = bitset.pack(order[:, None] < m_cut[None, :].long())
         fw = bitset.pack(frontier)
         hw = torch.zeros_like(lane_mask)
-        consts = (bitset.pack(admit), g.src[order].clamp(0, n_cap - 1).long(),
-                  g.dst[order].long(), live[order], cut_ws, v_safe,
+        consts = (bitset.pack(admit), src, dst, live, m_cut, v_safe,
                   lanes // bitset.WORD, lanes % bitset.WORD, lane_mask)
         return (fw, fw, hw), consts, _packed_go(fw, hw, lane_mask)
-    src, dst, live = relax_edges(g.src, g.dst, live, n_cap)
     hit = torch.zeros(qc, dtype=torch.bool, device=dev)
     consts = (admit, src, dst, live, m_cut, v_safe, lanes)
     return (frontier, frontier.clone(), hit), consts, \
@@ -322,27 +307,22 @@ def _packed_go(fw: torch.Tensor, hw: torch.Tensor, lane_mask: torch.Tensor
     return (fw != 0).any() & ((hw & lane_mask) != lane_mask).any()
 
 
-def bfs_round(carry, consts, *, frontier_dtype: str = "int8",
-              scan_steps: int | None = None):
+def bfs_round(carry, consts, *, frontier_dtype: str = "int8"):
     """One round of the lane-wise loop on :func:`bfs_prologue`'s state:
     ``(carry, go)``.  Relax the frontier along the live (and, per lane,
-    cut-admitted) edges, gate by admit, visited and hit, and gather the
-    targets' rows.  The packed path gathers the frontier words of the
-    edges whose source is on the frontier and segment-ORs them by head;
-    ``scan_steps`` fixes that scan's depth (an exported round, which
-    cannot read the host; any depth that covers the longest run gives the
-    same words), None reads the longest run on the host."""
+    cut-admitted) edges (:func:`relax`), gate by admit, visited and hit,
+    and gather the targets' rows.  The packed path keeps frontier,
+    visited and hit in words and relaxes through the frontier's (n_cap,
+    Qc) bytes: one scatter-max, as the int8 path, where an OR of words by
+    head would take a scan of ``log2`` of the longest in-edge run (a host
+    read, or ``log2(m_cap)`` steps where there is none); the words are
+    the same."""
     if frontier_dtype == "packed":
         fw, vw, hw = carry
-        admit_w, src_s, dst_s, live_s, cut_ws, v_safe, lw, lb, lane_mask = \
-            consts
-        eidx = torch.nonzero((fw != 0).any(1)[src_s] & live_s).squeeze(1)
-        contrib = fw[src_s[eidx]]
-        if cut_ws is not None:
-            contrib = contrib & cut_ws[eidx]
-        nw = bitset.sorted_segment_or(contrib, dst_s[eidx],
-                                      admit_w.shape[0], steps=scan_steps)
-        nw = nw & admit_w & ~vw & ~hw[None, :]
+        admit_w, src, dst, live, m_cut, v_safe, lw, lb, lane_mask = consts
+        nxt = relax(bitset.unpack(fw, v_safe.shape[0]), src, dst, live,
+                    n_cap=admit_w.shape[0], m_cut=m_cut)
+        nw = bitset.pack(nxt) & admit_w & ~vw & ~hw[None, :]
         hits = ((nw[v_safe, lw] >> lb) & 1) != 0
         hw = hw | bitset.pack(hits)
         return (nw, vw | nw, hw), _packed_go(nw, hw, lane_mask)

@@ -8,6 +8,9 @@ include and the flags), and is loaded with ``ctypes``.  The compiler's
 ``-Xptxas -v`` report (registers and spills per kernel instance) is kept
 beside it as ``lib<name>.log`` (``ptxas_report``).  Nothing is built when a
 module is imported: the CPU never needs the libraries.
+
+``register_op`` binds a kernel to torch as an operator of the
+``repro_torch`` library, at import.
 """
 from __future__ import annotations
 
@@ -166,3 +169,24 @@ def ptr(t) -> ctypes.c_void_p:
 def sm_count(device) -> int:
     """Streaming multiprocessors of a CUDA device (persistent grids)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+#: the torch operator library of the four kernels (``register_op``)
+_OPS = torch.library.Library("repro_torch", "DEF")
+
+
+def register_op(name: str, schema: str, cpu, cuda, fake):
+    """Define the operator ``repro_torch::<name>`` with ``schema`` (its
+    arguments and result, without the name), its CPU and CUDA kernels and
+    its fake kernel (the output's shape and dtype, what ``torch.export``
+    traces with), and return it (``torch.ops.repro_torch.<name>``).
+    Through ``torch.library.define``/``impl``/``register_fake``: a call
+    costs the C++ dispatcher only, where ``torch.library.custom_op``
+    wraps every call in a Python autograd kernel, which these
+    inference-only ops do not need."""
+    qual = f"repro_torch::{name}"
+    torch.library.define(qual, schema, lib=_OPS)
+    torch.library.impl(qual, "cpu", lib=_OPS)(cpu)
+    torch.library.impl(qual, "cuda", lib=_OPS)(cuda)
+    torch.library.register_fake(qual, lib=_OPS)(fake)
+    return getattr(torch.ops.repro_torch, name).default

@@ -17,9 +17,9 @@ lanes' query-side words in registers, folds the three tests into one
 accumulator with one 3-input logic op per word, and writes each row's
 bytes of its lanes with one packed store; see the sources for the design.
 
-``bfs_admit_plane`` (on one pre-combined freshness row, ``admit_row``)
-launches the kernel for CUDA tensors and takes ``admit_plain`` for CPU
-tensors.  ``bfs_admit_plane.launches`` counts kernel launches.
+``bfs_admit_plane`` (through ``admit_op``, on one pre-combined freshness
+row) launches the kernel for CUDA tensors and takes ``admit_plain`` for
+CPU tensors.  ``bfs_admit_plane.launches`` counts kernel launches.
 
 The streamed kernel ``csrc/bfs_prune_streamed.cu`` replaces
 ``bfs_admit_plane_streamed`` (body ``_make_streamed_kernel``, line 135):
@@ -29,7 +29,8 @@ pre-combined into one freshness row.  ``bfs_admit_plane_streamed`` and
 
 Each kernel is a torch custom op, ``repro_torch::bfs_admit_plane`` and
 ``repro_torch::bfs_admit_plane_streamed`` (``admit_op``,
-``streamed_admit_op``), registered when this module is imported: the CUDA
+``streamed_admit_op``), registered when this module is imported
+(``_build.register_op``): the CUDA
 implementation launches the kernel, the CPU one is the plain version, and
 a fake implementation gives the (n_cap, Q) int8 output, so that
 ``torch.export`` traces the residue through the kernel as one node.  Both
@@ -53,8 +54,7 @@ import torch
 from repro_torch.core import query as Q
 from repro_torch.kernels import _build
 from repro_torch.kernels.dbl_query.dbl_query import (_aligned, _check,
-                                                     _check_pairs,
-                                                     freshness_rows)
+                                                     _check_pairs)
 
 #: threads per block of the grid kernel and of the streamed kernel (the
 #: sources' __launch_bounds__ caps)
@@ -217,8 +217,13 @@ def _check_planes(bl_in, bl_out, dl_in, dl_out, u, v, dev):
 def _fresh_row(m_cut, m_total, d_cut, d_total):
     """The admit kernels' one freshness row: ``(m_cut >= m_total) & (d_cut
     >= d_total)`` as (Q,) int32 0/1, or None without cutoffs."""
-    cut = freshness_rows(m_cut, m_total, d_cut, d_total)
-    return None if cut is None else cut.all(0).to(torch.int32)
+    _check_pairs(m_cut, m_total, d_cut, d_total)
+    if m_cut is None:
+        return None
+    fresh = m_cut >= m_total
+    if d_cut is not None:
+        fresh = fresh & (d_cut >= d_total)
+    return fresh.to(torch.int32)
 
 
 def _admit_fake(bl_in, bl_out, dl_in, dl_out, u, v, fresh, *rest):
@@ -257,21 +262,11 @@ def _admit_cuda(bl_in, bl_out, dl_in, dl_out, u, v, fresh):
     return out
 
 
-admit_op = torch.library.custom_op(
-    "repro_torch::bfs_admit_plane", _admit_cpu, mutates_args=(),
-    device_types="cpu",
-    schema="(Tensor bl_in, Tensor bl_out, Tensor dl_in, Tensor dl_out, "
-           "Tensor u, Tensor v, Tensor? fresh) -> Tensor")
-admit_op.register_kernel("cuda")(_admit_cuda)
-admit_op.register_fake(_admit_fake)
-
-
-def admit_row(bl_in, bl_out, dl_in, dl_out, u, v, fresh=None
-              ) -> torch.Tensor:
-    """The grid kernel ``csrc/bfs_prune.cu`` (the op ``admit_op``) on the
-    pre-combined freshness row ``fresh`` (Q,) int32 0/1 or None: the DL
-    term is on where it holds 1.  CPU tensors take the plain version."""
-    return admit_op(bl_in, bl_out, dl_in, dl_out, u, v, fresh)
+admit_op = _build.register_op(
+    "bfs_admit_plane",
+    "(Tensor bl_in, Tensor bl_out, Tensor dl_in, Tensor dl_out, Tensor u, "
+    "Tensor v, Tensor? fresh) -> Tensor", _admit_cpu, _admit_cuda,
+    _admit_fake)
 
 
 def bfs_admit_plane(bl_in, bl_out, dl_in, dl_out, u, v, m_cut=None,
@@ -283,11 +278,11 @@ def bfs_admit_plane(bl_in, bl_out, dl_in, dl_out, u, v, m_cut=None,
     ``m_cut`` (Q,) int32 with ``m_total`` and ``d_cut`` (Q,) int32 with
     ``d_total`` (needs the m-cut pair; totals ints or 0-d tensors) gate
     the DL term per lane; they are pre-combined into one freshness row and
-    handed to ``admit_row``.
+    handed to the grid kernel ``csrc/bfs_prune.cu`` (the op ``admit_op``,
+    the plain version on CPU tensors).
     """
-    _check_pairs(m_cut, m_total, d_cut, d_total)
-    return admit_row(bl_in, bl_out, dl_in, dl_out, u, v,
-                     _fresh_row(m_cut, m_total, d_cut, d_total))
+    return admit_op(bl_in, bl_out, dl_in, dl_out, u, v,
+                    _fresh_row(m_cut, m_total, d_cut, d_total))
 
 
 bfs_admit_plane.launches = 0
@@ -341,13 +336,11 @@ def _streamed_cuda(bl_in, bl_out, dl_in, dl_out, u, v, fresh, n_block):
     return out
 
 
-streamed_admit_op = torch.library.custom_op(
-    "repro_torch::bfs_admit_plane_streamed", _streamed_cpu, mutates_args=(),
-    device_types="cpu",
-    schema="(Tensor bl_in, Tensor bl_out, Tensor dl_in, Tensor dl_out, "
-           "Tensor u, Tensor v, Tensor? fresh, int? n_block) -> Tensor")
-streamed_admit_op.register_kernel("cuda")(_streamed_cuda)
-streamed_admit_op.register_fake(_admit_fake)
+streamed_admit_op = _build.register_op(
+    "bfs_admit_plane_streamed",
+    "(Tensor bl_in, Tensor bl_out, Tensor dl_in, Tensor dl_out, Tensor u, "
+    "Tensor v, Tensor? fresh, int? n_block) -> Tensor", _streamed_cpu,
+    _streamed_cuda, _admit_fake)
 
 
 def bfs_admit_plane_streamed(bl_in, bl_out, dl_in, dl_out, u, v, m_cut=None,

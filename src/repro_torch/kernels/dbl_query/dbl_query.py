@@ -24,7 +24,8 @@ arithmetic for the CPU tests.
 
 Each kernel is a torch custom op, ``repro_torch::dbl_query_verdicts`` and
 ``repro_torch::dbl_query_verdicts_streamed`` (``verdicts_op``,
-``streamed_verdicts_op``), registered when this module is imported: the
+``streamed_verdicts_op``), registered when this module is imported
+(``_build.register_op``): the
 CUDA implementation launches the kernel, the CPU one is the plain version
 (``verdicts_plain`` / ``verdicts_streamed_plain``), and a fake
 implementation gives the output's shape and dtype, so that
@@ -32,7 +33,7 @@ implementation gives the output's shape and dtype, so that
 loaded program reaches the same kernel.  The ops take the cutoffs as
 pre-combined 0/1 freshness rows (``freshness_rows``), never as host
 integers, which export would bake into the graph.  ``dbl_query_verdicts``
-and ``streamed_verdicts_rows`` (and ``verdicts_rows``) are the wrappers;
+and ``streamed_verdicts_rows`` are the wrappers;
 ``dbl_query_verdicts.launches`` and ``dbl_query_verdicts_streamed.launches``
 count kernel launches.
 """
@@ -234,25 +235,9 @@ def _verdicts_fake(dl_in, dl_out, bl_in, bl_out, u, v, cut, il_in, il_out,
     return u.new_empty(u.shape, dtype=_out_dtype(out_int8))
 
 
-verdicts_op = torch.library.custom_op(
-    "repro_torch::dbl_query_verdicts", _verdicts_cpu, mutates_args=(),
-    device_types="cpu", schema=_VERDICTS_SCHEMA)
-verdicts_op.register_kernel("cuda")(_verdicts_cuda)
-verdicts_op.register_fake(_verdicts_fake)
-
-
-def verdicts_rows(dl_in, dl_out, bl_in, bl_out, u, v, cut=None, il_in=None,
-                  il_out=None, *, out_dtype=torch.int32) -> torch.Tensor:
-    """The grid kernel ``csrc/dbl_query.cu`` (the op ``verdicts_op``) on
-    pre-combined freshness rows ``cut`` (ncut, Q) int32 0/1 or None: row 0
-    gates label positives, row 1 keeps only self-positives and BL
-    negatives where it is 0.  CPU tensors take ``verdicts_plain``."""
-    _check_out_dtype(out_dtype)
-    _check_cut(cut)
-    if (il_in is None) != (il_out is None):
-        raise ValueError("pass il_in and il_out together")
-    return verdicts_op(dl_in, dl_out, bl_in, bl_out, u, v, cut, il_in,
-                       il_out, out_dtype == torch.int8)
+verdicts_op = _build.register_op("dbl_query_verdicts", _VERDICTS_SCHEMA,
+                                 _verdicts_cpu, _verdicts_cuda,
+                                 _verdicts_fake)
 
 
 def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
@@ -269,12 +254,17 @@ def dbl_query_verdicts(dl_in, dl_out, bl_in, bl_out, u, v,
     negatives.  Optional ``il_in``/``il_out`` (n_cap, 2*dim) int32
     interval planes: containment violations join the negatives on d-fresh
     lanes.  The cutoffs are pre-combined into freshness rows
-    (``freshness_rows``) and handed to ``verdicts_rows``.
+    (``freshness_rows``: row 0 gates label positives, row 1 keeps only
+    self-positives and BL negatives where it is 0) and handed to the grid
+    kernel ``csrc/dbl_query.cu`` (the op ``verdicts_op``, the plain
+    version on CPU tensors).
     """
-    _check_pairs(m_cut, m_total, d_cut, d_total)
-    return verdicts_rows(dl_in, dl_out, bl_in, bl_out, u, v,
-                         freshness_rows(m_cut, m_total, d_cut, d_total),
-                         il_in, il_out, out_dtype=out_dtype)
+    _check_out_dtype(out_dtype)
+    if (il_in is None) != (il_out is None):
+        raise ValueError("pass il_in and il_out together")
+    return verdicts_op(dl_in, dl_out, bl_in, bl_out, u, v,
+                       freshness_rows(m_cut, m_total, d_cut, d_total),
+                       il_in, il_out, out_dtype == torch.int8)
 
 
 dbl_query_verdicts.launches = 0
@@ -290,10 +280,9 @@ def freshness_rows(m_cut=None, m_total=None, d_cut=None, d_total=None
     _check_pairs(m_cut, m_total, d_cut, d_total)
     if m_cut is None:
         return None
-    rows = [m_cut >= m_total]
-    if d_cut is not None:
-        rows.append(d_cut >= d_total)
-    return torch.stack(rows).to(torch.int32)
+    if d_cut is None:
+        return (m_cut >= m_total).to(torch.int32)[None]
+    return torch.stack([m_cut >= m_total, d_cut >= d_total]).to(torch.int32)
 
 
 def verdicts_streamed_plain(dl_in, dl_out, bl_in, bl_out, u, v, cut=None,
@@ -353,11 +342,9 @@ def _streamed_fake(dl_in, dl_out, bl_in, bl_out, u, v, cut, out_int8):
     return u.new_empty(u.shape, dtype=_out_dtype(out_int8))
 
 
-streamed_verdicts_op = torch.library.custom_op(
-    "repro_torch::dbl_query_verdicts_streamed", _streamed_cpu,
-    mutates_args=(), device_types="cpu", schema=_STREAMED_SCHEMA)
-streamed_verdicts_op.register_kernel("cuda")(_streamed_cuda)
-streamed_verdicts_op.register_fake(_streamed_fake)
+streamed_verdicts_op = _build.register_op(
+    "dbl_query_verdicts_streamed", _STREAMED_SCHEMA, _streamed_cpu,
+    _streamed_cuda, _streamed_fake)
 
 
 def dbl_query_verdicts_streamed(dl_in, dl_out, bl_in, bl_out, u, v,

@@ -96,32 +96,41 @@ def device_desc(args) -> list:
 
 
 class ShapeDispatcher:
-    """Callable that routes by inputs: a call whose key (``avals_desc``)
-    was added goes to its loaded program, anything else to the live phase
+    """Callable that routes by inputs: a call whose dispatch key was added
+    goes to its loaded program, anything else to the live phase
     ``fallback``.  An exported program serves one input signature, while
-    an engine phase serves several shapes and branches.  ``loaded_calls``
-    and ``live_calls`` count the two routes."""
+    an engine phase serves several shapes and branches.
 
-    def __init__(self, fallback):
+    ``key(*args)`` names the few things that vary between one engine's
+    calls of the phase (a batch size, a branch flag, the index's sizes),
+    so that a call reads a handful of attributes, not the whole input
+    tree.  The key must determine the call's ``avals_desc``; ``add``
+    computes those once and refuses a second program under one key with
+    other ones.  ``loaded_calls`` and ``live_calls`` count the two
+    routes."""
+
+    def __init__(self, fallback, key):
         self.fallback = fallback
-        self.table: dict[str, object] = {}
+        self.key = key
+        self.table: dict = {}
         self.loaded_calls = 0
         self.live_calls = 0
 
-    @staticmethod
-    def _k(args) -> str:
-        return repr(avals_desc(args))
-
     def add(self, args, fn):
-        self.table[self._k(args)] = fn
+        k = self.key(*args)
+        avals = avals_desc(args)
+        if k in self.table and self.table[k][1] != avals:
+            raise ValueError(f"dispatch key {k!r} covers two input "
+                             "signatures; the key must name what differs")
+        self.table[k] = (fn, avals)
 
     def __call__(self, *args):
-        fn = self.table.get(self._k(args))
-        if fn is None:
+        hit = self.table.get(self.key(*args))
+        if hit is None:
             self.live_calls += 1
             return self.fallback(*args)
         self.loaded_calls += 1
-        return fn(*args)
+        return hit[0](*args)
 
 
 class _Phase(torch.nn.Module):
@@ -190,9 +199,10 @@ class AOTCache:
             self.misses += 1
             self.log.append({"tag": tag, "key": key, "event": "unusable"})
             return None
-        # a ShapeDispatcher calls it only on inputs whose tree, shapes,
-        # dtypes and other leaves equal the exported ones (its key), so
-        # the module's own check of each call's inputs is skipped
+        # a ShapeDispatcher calls it only on inputs whose dispatch key,
+        # and so whose tree, shapes, dtypes and other leaves, equal the
+        # exported ones, so the module's own check of each call's inputs
+        # is skipped
         fn.validate_inputs = False
         self.hits += 1
         self.log.append({"tag": tag, "key": key, "event": "load",

@@ -337,14 +337,14 @@ class QueryEngine:
         self.donate = bool(donate)
         self.stats = EngineStats()
         self.last_rebuild_info: dict | None = None   # set by rebuild()
-        # batches pad to a multiple of bfs_chunk (the kernels mask their
-        # ragged tail, so q_block needs no padding)
-        self._granule = self.bfs_chunk
         # the dispatch points of the query phases: the live methods, or
         # aot_warmup's ShapeDispatchers over them; _coal_phases maps a
         # chunk bucket to its (prologue, round) pair
         self._label_phase = self.label_phase
         self._coal_phases: dict = {}
+        # (graph, the graph as the residue phases take it), for the last
+        # graph a dispatch read (_phase_graph)
+        self._phase_g = None
         self.aot_cache = None                        # set by aot_warmup()
         # the sharded layout's plan for the bound edges; rebuild() hands
         # its plan to the re-bind through _plan_override
@@ -564,24 +564,27 @@ class QueryEngine:
             it += 1
         return known | Q.bfs_hits(carry, c, self.frontier_dtype)
 
-    @staticmethod
-    def _phase_graph(g: G.Graph) -> G.Graph:
+    def _phase_graph(self, g: G.Graph) -> G.Graph:
         """``g`` with ``m`` and ``del_epoch`` as 0-d int32 tensors, filled
         on its device (no copy from the host): the residue phases read
-        them as inputs, so an exported program serves every edge count."""
-        def scalar(x):
-            return torch.full((), x, dtype=torch.int32, device=g.device)
-        return replace(g, m=scalar(g.m), del_epoch=scalar(g.del_epoch))
+        them as inputs, so an exported program serves every edge count.
+        Made once for each graph (a Graph is never changed in place: an
+        insert or delete makes a new one), not on every dispatch."""
+        if self._phase_g is None or self._phase_g[0] is not g:
+            def scalar(x):
+                return torch.full((), x, dtype=torch.int32, device=g.device)
+            self._phase_g = (g, replace(g, m=scalar(g.m),
+                                        del_epoch=scalar(g.del_epoch)))
+        return self._phase_g[1]
 
     def coalesced_prologue(self, g: G.Graph, p: Q.PackedLabels, il, uu, vv,
-                           m_cut, d_stale: bool, lazy_cut: bool = True):
+                           m_cut, d_stale: bool):
         """The replicated residue up to its first BFS round: the re-check
         verdicts (the cutoff verdict kernel), the admit plane (the admit
         kernel under ``bfs_kernel``) and ``Q.bfs_prologue``.  Returns
         (lanes the re-check answers True, carry, consts, go).  Only
         tensors come in (``g`` as ``_phase_graph`` gives it) and go out,
-        so that ``torch.export`` takes it whole; ``lazy_cut`` as in
-        ``Q.bfs_prologue``."""
+        so that ``torch.export`` takes it whole."""
         n_cap = p.dl_in.shape[0]
         live_lane = uu < n_cap
         uu_safe = uu.clamp(max=n_cap - 1)
@@ -598,13 +601,31 @@ class QueryEngine:
                                 streaming=self.streaming)
         carry, consts, go = Q.bfs_prologue(
             g, p, uu2, vv, admit, m_cut, not d_stale, il, n_cap=n_cap,
-            frontier_dtype=self.frontier_dtype, lazy_cut=lazy_cut)
+            frontier_dtype=self.frontier_dtype)
         return (verd == 1) & live_lane, carry, consts, go
 
-    def coalesced_round(self, carry, consts, scan_steps: int | None = None):
+    def coalesced_round(self, carry, consts):
         """One BFS round of the replicated residue (``Q.bfs_round``)."""
-        return Q.bfs_round(carry, consts, frontier_dtype=self.frontier_dtype,
-                           scan_steps=scan_steps)
+        return Q.bfs_round(carry, consts, frontier_dtype=self.frontier_dtype)
+
+    # the dispatch keys of the query phases (``aot.ShapeDispatcher``): what
+    # varies between one engine's calls of a phase.  Dtypes, the frontier
+    # layout and the other knobs are fixed by the engine's configuration
+    # (the cache key holds them).
+    @staticmethod
+    def _label_key(p, u, v, dirty, il):
+        return (u.shape[0], bool(dirty), p.dl_in.shape, p.bl_in.shape,
+                None if il is None else il[0].shape)
+
+    @staticmethod
+    def _prologue_key(g, p, il, uu, vv, m_cut, d_stale):
+        return (uu.shape[0], bool(d_stale), m_cut is None, g.src.shape,
+                p.dl_in.shape, p.bl_in.shape,
+                None if il is None else il[0].shape)
+
+    @staticmethod
+    def _round_key(carry, consts):
+        return (carry[0].shape, consts[1].shape, consts[4] is None)
 
     def insert_impl(self, idx: DBLIndex, ns, nd) -> tuple[DBLIndex, bool]:
         """Alg 3 on the bound index: the fused DL/BL update, then the "il"
@@ -645,7 +666,7 @@ class QueryEngine:
 
     # ------------------------------------------------------------ queries
     def _padded(self, q: int) -> int:
-        c = self._granule
+        c = self.bfs_chunk
         return max(c, -(-int(q) // c) * c)
 
     def _pad_queries(self, u, v):
@@ -936,7 +957,7 @@ class QueryEngine:
                    batch_sizes=(1,), bfs_buckets=None) -> "QueryEngine":
         """Warm the query phases from an AOT disk cache of
         ``torch.export`` programs (``serve.aot``): the label phase for each
-        batch size (padded to the batch granule) and, for each chunk
+        batch size (padded to a multiple of ``bfs_chunk``) and, for each chunk
         bucket, the coalesced residue's prologue and one BFS round.  Hits
         go behind the dispatch points; misses export this process's phases
         so that the next process hits.  The programs are exported clean
@@ -982,7 +1003,8 @@ class QueryEngine:
                 dispatcher.add(args, prog)
 
         if not isinstance(self._label_phase, ShapeDispatcher):
-            self._label_phase = ShapeDispatcher(self._label_phase)
+            self._label_phase = ShapeDispatcher(self._label_phase,
+                                                self._label_key)
         i32 = dict(dtype=torch.int32, device=index.device)
         for q in batch_sizes:
             qp = self._padded(q)
@@ -990,26 +1012,22 @@ class QueryEngine:
                   (index.packed, torch.zeros(qp, **i32),
                    torch.zeros(qp, **i32), False, index.il))
         g = self._phase_graph(index.graph)
-        # a round's segment-OR scan covers a run of every edge slot
-        steps = g.m_cap.bit_length()
         for chunk in (bfs_buckets or self._chunk_buckets()):
             c = self._bucket_for(chunk)
             if c not in self._coal_phases:
                 self._coal_phases[c] = (
-                    ShapeDispatcher(self.coalesced_prologue),
-                    ShapeDispatcher(self.coalesced_round))
+                    ShapeDispatcher(self.coalesced_prologue,
+                                    self._prologue_key),
+                    ShapeDispatcher(self.coalesced_round, self._round_key))
             prologue, round_ = self._coal_phases[c]
             args = (g, index.packed, index.il,
                     torch.full((c,), index.n_cap, **i32),
                     torch.zeros(c, **i32),
                     torch.full((c,), Q.FRESH_CUT, **i32), False)
-            exported = functools.partial(self.coalesced_prologue,
-                                         lazy_cut=False)
-            entry(f"coalesced-{c}", prologue, exported, args)
+            entry(f"coalesced-{c}", prologue, self.coalesced_prologue, args)
             # the round's inputs as a loaded prologue hands them over
-            _, carry, consts, _ = exported(*args)
-            entry(f"bfs-round-{c}", round_,
-                  functools.partial(self.coalesced_round, scan_steps=steps),
+            _, carry, consts, _ = self.coalesced_prologue(*args)
+            entry(f"bfs-round-{c}", round_, self.coalesced_round,
                   (carry, consts))
         return self
 

@@ -291,3 +291,38 @@ def test_cli_aot_cache_second_run_hits_every_store(tmp_path, capsys):
     assert len(_files(tmp_path)) == first["engine"]["aot"]["stores"]
     for k in ("queries", "rho", "inserts"):
         assert first[k] == second[k]
+
+
+def test_dispatcher_key_must_name_what_differs():
+    """A dispatch key that does not tell two input signatures apart is
+    refused when the second program is added; calls route by the key."""
+    def key(x, flag):
+        return bool(flag)
+    d = aot.ShapeDispatcher(lambda x, flag: "live", key)
+    d.add((torch.zeros(4), False), lambda x, flag: "loaded")
+    d.add((torch.ones(4), False), lambda x, flag: "loaded again")
+    with pytest.raises(ValueError, match="two input signatures"):
+        d.add((torch.zeros(8), False), lambda x, flag: "other")
+    assert d(torch.zeros(4), False) == "loaded again"
+    assert d(torch.zeros(4), True) == "live"
+    assert (d.loaded_calls, d.live_calls) == (1, 1)
+
+
+def test_phase_graph_made_once_a_graph():
+    """The residue phases' graph (``m``, ``del_epoch`` as 0-d tensors) is
+    made once for each bound graph, and anew after an insert or a
+    delete, with the new counts."""
+    idx, src, dst = _t_index()
+    eng = TEngine(idx, bfs_chunk=64, max_iters=64)
+    g = eng.index.graph
+    pg = eng._phase_graph(g)
+    assert eng._phase_graph(g) is pg
+    assert int(pg.m) == g.m and int(pg.del_epoch) == g.del_epoch
+    assert pg.src is g.src
+    eng.insert(np.array([1, 2], np.int32), np.array([3, 4], np.int32))
+    eng.delete(src[:3], dst[:3])
+    g2 = eng.index.graph
+    pg2 = eng._phase_graph(g2)
+    assert pg2 is not pg
+    assert int(pg2.m) == g2.m == g.m + 2
+    assert int(pg2.del_epoch) == g2.del_epoch == g.del_epoch + 1
