@@ -104,7 +104,19 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    replicated server's, and each label phase issues one all-gather and
    no other collective.  The kernels' launches on the mesh server's
    calls add to the grid kernels' counts.  Lines ``query_mesh_world1``
-   and ``query_mesh_4rank``.
+   and ``query_mesh_4rank``.  Then, in the same two worlds, the
+   auto-partitioned scheme (``gspmd_lifecycle``) on a launch mesh, (1, 1)
+   and (2, 2): after one untimed build, ``distributed_build`` (k = k' =
+   64, ``max_iters=64``), ``distributed_label_verdicts`` on 20 000 lanes,
+   two ``distributed_insert``s of 100 edges, a delete of 500 single-slot
+   pairs, a dirty query of 2 048 lanes, the rebuild, ``shard_index`` onto
+   the 1-axis mesh and ``QueryEngine(mesh=<that mesh>, bfs_kernel=True)``
+   over ``reach_place_index``, each rank's blocks and every answer equal
+   to the replicated port's on the same card bit for bit, one
+   ``all_reduce`` a fixpoint round.  Lines ``gspmd_world1`` and
+   ``gspmd_4rank``: ms beside the replicated steps, rounds, the
+   ``all_reduce`` calls and bytes a round, the gathers; the verdict and
+   admit kernels' launches add to their counts.
 9. baselines: the paper's baselines beside DBL on the LJ preset at full
    size.  A ``DBLIndex`` (k = k' = 64, ``max_iters=64``) served by a
    ``ReachabilityServer`` over ``QueryEngine(bfs_chunk=64, max_iters=64,
@@ -146,7 +158,15 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    Lines ``aot_store``, ``aot_child`` (load ms per file, seconds from a
    child's start to its first answered batch with a warm and with an
    empty cache, round ms loaded and live) and ``aot``; the launches from
-   loaded programs add to the kernels' counts.
+   loaded programs add to the kernels' counts.  Then ``warmup``
+   (``warmup_phase``): two fresh children serve the same LJ stream over
+   ``QueryEngine(bfs_kernel=True)``, one after ``warmup`` (the batch and
+   every chunk bucket) and one without: a round of 20 000 queries, a
+   second, a delete of 500 single-slot pairs, the delta rebuild and a
+   round; answers equal this process's engine's, and the warmed engine's
+   ``dispatch_shape_counts()`` equal after the warmup, the first round and
+   the rebuild.  One ``warmup`` line (first-round ms with and without the
+   warmup); the children's launches add to the kernels' counts.
 11. gnn: the GNN family (``repro_torch.models.gnn``) at each model's full
    CONFIG, TF32 off.  PNA on ``full_graph_sm`` (2 708 nodes, 10 556
    uniform random edges, 1 433 features, 7 classes); NequIP, MACE and
@@ -292,6 +312,10 @@ SHARDED_TIMEOUT_S = 600
 #: the sparse halo's setting beside each sharded lifecycle: the reference
 #: bench's (``benchmarks/bench_dbl_perf.py:614``)
 SPARSE_HALO = dict(halo_mode="sparse", hub_count=8)
+# the auto-partitioned scheme's lifecycle (``gspmd_lifecycle``): inserts,
+# and the lanes of its dirty query
+GSPMD_INSERTS = 2
+GSPMD_QUERIES = 2_048
 #: the baselines phase: queries and rounds, IP-lite's hashes, the
 #: sampler's seed vertices, fanouts and targets, and the example twins
 #: (each run at its default arguments on the phase's device)
@@ -2048,9 +2072,172 @@ def _sharded_rank(rank, world, store_path, out_dir):
             for name, extra in SHARDED_CONFIGS:
                 result[name] = sharded_lifecycle(mesh, extra)
             result["query_mesh"] = query_mesh_serve(D.query_mesh())
+            result["gspmd"] = gspmd_lifecycle((2, 2))
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
     finally:
         dist.destroy_process_group()
+
+
+#: the leaves of an index the auto-partitioned scheme lays out
+_SCHEME_LEAVES = ("graph.src", "graph.dst", "graph.del_at", "graph.n",
+                  "landmarks", "dl_in", "dl_out", "bl_in", "bl_out",
+                  "packed.dl_in", "packed.dl_out", "packed.bl_in",
+                  "packed.bl_out", "bl_sources", "bl_sinks")
+_SCHEME_HOST = ("graph.m", "graph.del_epoch", "epoch", "label_del_epoch",
+                "saturated")
+
+
+def _field(obj, name):
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _scheme_hold(step, idx, rep):
+    """This rank's block of every leaf of the scheme-sharded ``idx``
+    against the same block of the replicated ``rep``, and the host
+    fields, bit for bit; raises on the first difference."""
+    import torch
+    from repro_torch.core import distributed as D
+    lays = D.index_shardings(idx.scheme)
+    for name in _SCHEME_LEAVES:
+        want = _field(lays, name).shard(_field(rep, name))
+        if not torch.equal(_field(idx, name), want):
+            raise AssertionError(f"gspmd {step}: {name} differs from the "
+                                 "replicated port's")
+    for name in _SCHEME_HOST:
+        if _field(idx, name) != _field(rep, name):
+            raise AssertionError(f"gspmd {step}: {name} "
+                                 f"{_field(idx, name)} != replicated "
+                                 f"{_field(rep, name)}")
+
+
+def gspmd_lifecycle(shape, device=None):
+    """The auto-partitioned scheme (``distributed_build``,
+    ``distributed_insert``, ``shard_index``) through the LJ lifecycle at
+    full width on a launch mesh of ``shape`` over the process group,
+    beside the replicated port on the same card: build, GSPMD_INSERTS
+    inserts of INSERTS edges, the verdicts of QUERIES lanes, a delete of
+    DELETES single-slot pairs, a dirty query of GSPMD_QUERIES lanes, the
+    rebuild, the re-placement onto the 1-axis mesh and ``QueryEngine(
+    mesh=<that mesh>, bfs_kernel=True)`` over ``reach_place_index``.
+    Every step's blocks and answers equal the replicated port's bit for
+    bit; every fixpoint round issues one ``all_reduce``.  Returns the
+    steps' ms beside the replicated ones, rounds, the collectives' calls
+    and bytes, and the kernels' launches on the scheme's calls."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.core import distributed as D
+    from repro_torch.graphs.generators import table2_graph
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.launch.sharding import reach_place_index
+    from repro_torch.serve.engine import QueryEngine
+
+    mesh = make_mesh_compat(shape, ("data", "model")[:len(shape)],
+                            device=device)
+    dev, d = mesh.device, mesh.size
+    sync = _sync_time if dev.type == "cuda" else _host_time
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    m = int(src.size)
+    m_cap = -(-(m + GSPMD_INSERTS * INSERTS) // d) * d
+    g = make_graph(src, dst, n, m_cap=m_cap, device=dev)
+    rng = np.random.default_rng(13)
+    kw = dict(max_iters=64, check="raise")
+    counters = {k: f for k, f in _counters().items()
+                if k in ("verdicts_kernel", "admit_kernel")}
+    launches = dict.fromkeys(counters, 0)
+    out = {"mesh": list(shape), "m_cap": m_cap, "ms": {},
+           "replicated_ms": {}, "rounds": {}, "traffic": {}}
+
+    def counted(fn):
+        for k in counters.values():
+            k.launches = 0
+        res = fn()
+        for name, k in counters.items():
+            launches[name] += k.launches
+        return res
+
+    def step(name, fn, rep_fn):
+        """``fn(traffic, rounds)`` on the scheme (every rank waits for the
+        others first) and ``rep_fn()``, timed; the blocks held."""
+        tr, rounds = D.SchemeTraffic(), []
+        dist.all_reduce(torch.zeros(1, device=dev))
+        idx, out["ms"][name] = sync(lambda: fn(tr, rounds))
+        rep, out["replicated_ms"][name] = sync(rep_fn)
+        _scheme_hold(name, idx, rep)
+        out["rounds"][name] = [int(r) for r in rounds]
+        t = tr.as_dict()
+        if t["all_reduce_calls"] != sum(min(r, 64) for r in rounds):
+            raise AssertionError(f"gspmd {name}: {t} for rounds {rounds}: "
+                                 "not one all_reduce a round")
+        t["bytes_per_round"] = t["all_reduce_bytes"] / max(
+            t["all_reduce_calls"], 1)
+        out["traffic"][name] = t
+        return idx, rep
+
+    # untimed: a process's first build pays its allocator's and the
+    # relax's first launches, which no timed step should
+    D.distributed_build(g, mesh, n_cap=n, k=64, k_prime=64, **kw)
+    idx, rep = step(
+        "build", lambda tr, r: D.distributed_build(
+            g, mesh, n_cap=n, k=64, k_prime=64, rounds=r, traffic=tr, **kw),
+        lambda: DBLIndex.build(g, n_cap=n, k=64, k_prime=64, device=dev,
+                               **kw))
+    u = rng.integers(0, n, QUERIES).astype(np.int32)
+    v = rng.integers(0, n, QUERIES).astype(np.int32)
+    verd, out["verdicts_ms"] = counted(lambda: sync(
+        lambda: D.distributed_label_verdicts(idx, mesh, u, v)))
+    if not torch.equal(verd, rep.label_verdicts(u, v)):
+        raise AssertionError("gspmd verdicts differ from the replicated "
+                             "port's")
+    for b in range(GSPMD_INSERTS):
+        ns = rng.integers(0, n, INSERTS).astype(np.int32)
+        nd = rng.integers(0, n, INSERTS).astype(np.int32)
+        prev = rep
+        idx, rep = step(
+            f"insert{b}", lambda tr, r: D.distributed_insert(
+                idx, mesh, ns, nd, rounds=r, traffic=tr, **kw),
+            lambda: prev.insert_edges(ns, nd, **kw))
+        if idx.scheme != mesh or idx.epoch != b + 1:
+            raise AssertionError(f"gspmd insert{b}: left the scheme")
+    ls, ld = live_edges(rep.graph)
+    pairs, mult = np.unique(ls.astype(np.int64) * n + ld, return_counts=True)
+    pick = rng.choice(pairs[mult == 1], DELETES, replace=False)
+    ds, dd = (pick // n).astype(np.int32), (pick % n).astype(np.int32)
+    idx_d, out["delete_ms"] = sync(lambda: idx.delete_edges(ds, dd))
+    rep_d = rep.delete_edges(ds, dd)
+    _scheme_hold("delete", idx_d, rep_d)
+    u2 = rng.integers(0, n, GSPMD_QUERIES).astype(np.int32)
+    v2 = rng.integers(0, n, GSPMD_QUERIES).astype(np.int32)
+    q = dict(bfs_chunk=BFS_CHUNK, max_iters=64)
+    ans, out["dirty_query_ms"] = counted(lambda: sync(
+        lambda: idx_d.query(u2, v2, **q)))
+    if not np.array_equal(ans, rep_d.query(u2, v2, **q)):
+        raise AssertionError("gspmd dirty query differs")
+    step("rebuild", lambda tr, r: idx_d.rebuild(**kw),
+         lambda: rep_d.rebuild(**kw))
+    mesh2 = make_mesh_compat((d,), ("data",), device=device)
+    idx3, out["replace_ms"] = sync(lambda: D.shard_index(idx, mesh2))
+    _scheme_hold("replace", idx3, rep)
+    if not torch.equal(D.distributed_label_verdicts(idx3, mesh2, u, v),
+                       rep.label_verdicts(u, v)):
+        raise AssertionError("gspmd verdicts after the re-placement differ")
+    eng = QueryEngine(bfs_chunk=BFS_CHUNK, max_iters=64, bfs_kernel=True,
+                      mesh=mesh2)
+    placed, out["place_ms"] = sync(lambda: reach_place_index(idx3, mesh2))
+    ans, out["engine_round_ms"] = counted(lambda: sync(
+        lambda: eng.run(placed, u, v)))
+    want = QueryEngine(rep, bfs_chunk=BFS_CHUNK, max_iters=64,
+                       bfs_kernel=True).run(rep, u, v)
+    if not np.array_equal(ans, want):
+        raise AssertionError("gspmd engine over the launch mesh differs")
+    out["launches"] = launches
+    if dev.type == "cuda" and any(c <= 0 for c in launches.values()):
+        raise AssertionError(f"a kernel never launched on the scheme's "
+                             f"path: {launches}")
+    out["plane_bytes_per_round"] = {"dl": n * 64, "bl": n * 64}
+    return out
 
 
 def _halo_bytes(rows, d, row_bytes):
@@ -2097,9 +2284,13 @@ def sharded_phase(card):
                 mesh, extra, card if name == "bool" else None)
                 for name, extra in SHARDED_CONFIGS}
             qm1 = query_mesh_serve(D.query_mesh())
+            gs1 = gspmd_lifecycle((1, 1))
         finally:
             dist.destroy_process_group()
         launches = dict(qm1["launches"])
+        for k, c in gs1["launches"].items():
+            launches[k] += c
+        emit("gspmd_world1", backend="nccl", bitwise=True, card=card, **gs1)
         emit("query_mesh_world1", backend="nccl", device=str(mesh.device),
              answers_equal=True, card=card, **qm1)
         for name, res in world1.items():
@@ -2134,6 +2325,22 @@ def sharded_phase(card):
             qm = [r.pop("query_mesh") for r in ranks]
             for k in launches:
                 launches[k] += sum(q["launches"][k] for q in qm)
+            gs = [r.pop("gspmd") for r in ranks]
+            for k in launches:
+                launches[k] += sum(x["launches"][k] for x in gs)
+            emit("gspmd_4rank", backend="gloo", ranks=SHARDED_RANKS,
+                 bitwise=True, mesh=gs[0]["mesh"], m_cap=gs[0]["m_cap"],
+                 ms=[x["ms"] for x in gs],
+                 replicated_ms=[x["replicated_ms"] for x in gs],
+                 rounds=gs[0]["rounds"], traffic=gs[0]["traffic"],
+                 verdicts_ms=[x["verdicts_ms"] for x in gs],
+                 delete_ms=[x["delete_ms"] for x in gs],
+                 dirty_query_ms=[x["dirty_query_ms"] for x in gs],
+                 replace_ms=[x["replace_ms"] for x in gs],
+                 place_ms=[x["place_ms"] for x in gs],
+                 engine_round_ms=[x["engine_round_ms"] for x in gs],
+                 plane_bytes_per_round=gs[0]["plane_bytes_per_round"],
+                 launches=[x["launches"] for x in gs], card=card)
             emit("query_mesh_4rank", backend="gloo", ranks=SHARDED_RANKS,
                  answers_equal=True,
                  lanes_per_rank=qm[0]["lanes_per_rank"],
@@ -2433,6 +2640,135 @@ def _aot_children(work, cold, dev, runs):
     reports = [json.loads(line) for line in proc.stdout.splitlines()
                if line.startswith("{")]
     return {r["run"]: r for r in reports}
+
+
+WARMUP_CHILD_TIMEOUT_S = 300
+
+
+def warmup_child(argv):
+    """A fresh serving process, run as ``python -c 'import sys,
+    chip_smoke; chip_smoke.warmup_child(sys.argv[1:])' <work dir> <warm>
+    <device>``: load the saved index, put ``QueryEngine(bfs_chunk=64,
+    max_iters=64, bfs_kernel=True)`` over it, ``warmup`` it (the round's
+    batch and every chunk bucket) when ``warm`` is 1, then serve a round,
+    a second round, a delete of the saved pairs, the delta rebuild and a
+    round on the rebuilt index.  ``dispatch_shapes()`` is read after the
+    warmup and after each of those; the answers go to
+    ``<work>/answers<warm>.npz`` and the report to stdout."""
+    import torch
+    from repro_torch.serve.engine import QueryEngine
+    work, warm, dev = Path(argv[0]), argv[1] == "1", argv[2]
+    data = np.load(work / "stream.npz")
+    idx = torch.load(work / "index.pt", weights_only=False,
+                     map_location=dev)
+    eng = QueryEngine(idx, bfs_chunk=BFS_CHUNK, max_iters=64,
+                      bfs_kernel=True)
+    out = {"warm": warm, "shapes": {}}
+    before = _launch_counts()
+    if warm:
+        t = time.perf_counter()
+        eng.warmup(idx, batch_sizes=(data["u1"].size,),
+                   bfs_buckets=eng._chunk_buckets())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out["warmup_ms"] = (time.perf_counter() - t) * 1e3
+        out["shapes"]["warmup"] = eng.dispatch_shape_counts()
+    ans1, out["first_round_ms"] = _timed_round(eng, data["u1"], data["v1"])
+    out["shapes"]["first_round"] = eng.dispatch_shape_counts()
+    _, out["second_round_ms"] = _timed_round(eng, data["u1"], data["v1"])
+    eng.delete(data["del_s"], data["del_d"])
+    eng.rebuild(mode="delta")
+    out["rebuild"] = eng.last_rebuild_info["mode"]
+    ans3, out["rebuilt_round_ms"] = _timed_round(eng, data["u3"],
+                                                 data["v3"])
+    out["shapes"]["delta_rebuild"] = eng.dispatch_shape_counts()
+    out["launches"] = {k: c - before[k] for k, c in _launch_counts().items()}
+    np.savez(work / f"answers{int(warm)}.npz", ans1=ans1, ans3=ans3)
+    print(json.dumps(out), flush=True)
+
+
+def warmup_phase(dev, card):
+    """``QueryEngine.warmup`` and ``dispatch_shapes`` at full LJ width: a
+    fresh child serves the same stream with a warmup (``warm``) and one
+    without (``cold``), both started after the kernels are built, so a
+    cold first round pays the libraries' loads and every first dispatch
+    itself.  The warm child's dispatch shapes after its warmup, its first
+    round and the delta rebuild must be equal; both children's answers
+    must equal this process's engine's.  Returns the children's
+    launches."""
+    import os
+    import torch
+    from repro_torch.core import DBLIndex, make_graph
+    from repro_torch.graphs.generators import table2_graph
+    from repro_torch.serve.engine import QueryEngine
+
+    n, src, dst = table2_graph("LJ", scale=1.0, seed=0)
+    rng = np.random.default_rng(31)
+    g = make_graph(src, dst, n, m_cap=int(src.size), device=dev)
+    idx = DBLIndex.build(g, n_cap=n, k=64, k_prime=64, max_iters=64,
+                         check="raise", device=dev)
+    pairs, mult = np.unique(src.astype(np.int64) * n + dst,
+                            return_counts=True)
+    pick = rng.choice(pairs[mult == 1], DELETES, replace=False)
+    data = dict(u1=rng.integers(0, n, QUERIES).astype(np.int32),
+                v1=rng.integers(0, n, QUERIES).astype(np.int32),
+                u3=rng.integers(0, n, QUERIES).astype(np.int32),
+                v3=rng.integers(0, n, QUERIES).astype(np.int32),
+                del_s=(pick // n).astype(np.int32),
+                del_d=(pick % n).astype(np.int32))
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="warmup_", dir=build_dir))
+    try:
+        np.savez(work / "stream.npz", **data)
+        torch.save(idx, work / "index.pt")
+        eng = QueryEngine(idx, bfs_chunk=BFS_CHUNK, max_iters=64,
+                          bfs_kernel=True)
+        want1 = eng.query(data["u1"], data["v1"])
+        eng.delete(data["del_s"], data["del_d"])
+        eng.rebuild(mode="delta")
+        want3 = eng.query(data["u3"], data["v3"])
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        reports = {}
+        for warm in (False, True):
+            proc = subprocess.run(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.warmup_child(sys.argv[1:])", str(work),
+                 str(int(warm)), dev.type], cwd=ROOT, env=env,
+                capture_output=True, text=True,
+                timeout=WARMUP_CHILD_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"the warmup child (warm={warm}) "
+                                     f"failed (rc {proc.returncode}): "
+                                     f"{proc.stderr[-3000:]}")
+            rep = json.loads(proc.stdout.strip().splitlines()[-1])
+            got = np.load(work / f"answers{int(warm)}.npz")
+            if not (np.array_equal(got["ans1"], want1)
+                    and np.array_equal(got["ans3"], want3)):
+                raise AssertionError(f"the warmup child (warm={warm}) "
+                                     "answered otherwise than this "
+                                     "process's engine")
+            reports["warm" if warm else "cold"] = rep
+        shapes = list(reports["warm"]["shapes"].values())
+        if any(s != shapes[0] for s in shapes):
+            raise AssertionError(f"a warmed engine made new dispatch "
+                                 f"shapes: {reports['warm']['shapes']}")
+        emit("warmup", card=card, queries=QUERIES,
+             dispatch_shapes=reports["warm"]["shapes"],
+             cold_dispatch_shapes=reports["cold"]["shapes"],
+             warmup_ms=reports["warm"]["warmup_ms"],
+             first_round_ms={k: r["first_round_ms"]
+                             for k, r in reports.items()},
+             second_round_ms={k: r["second_round_ms"]
+                              for k, r in reports.items()},
+             rebuilt_round_ms={k: r["rebuilt_round_ms"]
+                               for k, r in reports.items()},
+             rebuild=reports["warm"]["rebuild"],
+             launches={k: r["launches"] for k, r in reports.items()})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {k: sum(r["launches"][k] for r in reports.values())
+            for k in KERNELS}
 
 
 def aot_phase(dev, card):
@@ -4464,6 +4800,8 @@ def main():
     for name, c in baselines_phase(dev, card).items():
         launches[name] += c
     for name, c in aot_phase(dev, card).items():
+        launches[name] += c
+    for name, c in warmup_phase(dev, card).items():
         launches[name] += c
     for name, c in gnn_phase(dev, card).items():
         launches[name] += c

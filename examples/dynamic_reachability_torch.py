@@ -65,6 +65,7 @@ def main():
               f"cumulative")
     es = server.engine_stats()
     print(f"engine: backend={es['backend']} on {es['device']}, "
+          f"{es['dispatch_shapes']} dispatch shapes, "
           f"{es['bfs_dispatches']} BFS dispatches for "
           f"{es['queries']} queries")
     print("all rounds verified against B-BFS — OK")

@@ -18,6 +18,23 @@ vertex-sharded index (``core.distributed``), on which the methods that
 need whole planes raise.  ``from_numpy``/``to_numpy`` carry an index to
 and from the reference's field names.
 
+**Two sharded forms.**  A *vertex-sharded* index (``layout`` a
+``"vertex_sharded"`` layout, ``distributed.build_vertex_sharded``) holds
+its rank's row block of the planes and everything else whole, and runs
+every lifecycle step with halo exchanges; a method that needs whole
+planes raises and names the sharded counterpart.  An index of the
+*auto-partitioned* scheme (``scheme``, the launch mesh it lives on;
+``distributed.shard_index``/``distributed_build``) holds its rank's block
+of every array leaf, as ``distributed.index_shardings`` lays them out:
+plane rows, the leaf masks and the edge arrays split over every mesh
+axis, flattened.  Its ``layout`` stays ``REPLICATED``.  ``insert_edges``
+runs ``distributed.distributed_insert``, ``delete_edges`` tombstones each
+rank's edge block, ``label_verdicts`` runs
+``distributed.distributed_label_verdicts``, and the other methods gather
+the index at entry (every rank makes the call), as the reference's
+partitioner gathers for the unmodified code; results come back in the
+same scheme.
+
 **Fully-dynamic mode.**  ``delete_edges`` stamps tombstones and leaves the
 labels as a sound over-approximation; while dirty (``graph.del_epoch`` is
 ahead of ``label_del_epoch``) queries downgrade DL positives and the
@@ -133,10 +150,15 @@ class DBLIndex:
     # whose rows the planes hold; n_cap, landmarks, the leaf masks and the
     # graph are whole on every shard
     layout: PL.PlaneLayout = PL.REPLICATED
+    # the launch mesh of an auto-partitioned index, whose every array leaf
+    # is this rank's block (``distributed.index_shardings``); None otherwise
+    scheme: object = None
 
     @property
     def n_cap(self) -> int:
-        return self.dl_in.shape[0] * self.layout.shards
+        parts = self.layout.shards if self.scheme is None else \
+            self.scheme.size
+        return self.dl_in.shape[0] * parts
 
     @property
     def k(self) -> int:
@@ -191,6 +213,11 @@ class DBLIndex:
     def is_dirty(self) -> bool:
         """Labels carry deletions not yet rebuilt into them."""
         return self.graph.del_epoch > self.label_del_epoch
+
+    def _gathered(self) -> "DBLIndex":
+        """The whole index of an auto-partitioned one, on every rank."""
+        from . import distributed as D
+        return D.gather_index(self)
 
     def _whole(self, what: str, counterpart: str | None = None) -> None:
         """Refuse a method that needs whole planes on a shard: it names
@@ -251,7 +278,12 @@ class DBLIndex:
               return_stats: bool = False, driver: str = "engine"):
         """Batched reachability.  ``driver="engine"`` runs the QueryEngine
         (fused label phase + compacted BFS chunks); ``driver="host"`` runs
-        the host-side reference loop."""
+        the host-side reference loop.  An auto-partitioned index is
+        gathered first, on every rank."""
+        if self.scheme is not None:
+            return self._gathered().query(
+                u, v, bfs_chunk=bfs_chunk, max_iters=max_iters,
+                return_stats=return_stats, driver=driver)
         self._whole("query", _SERVE_SHARD)
         if driver == "host":
             return Q.query(self.graph, self.packed, u, v, n_cap=self.n_cap,
@@ -266,6 +298,11 @@ class DBLIndex:
         return eng.run(self, u, v, return_stats=return_stats)
 
     def label_verdicts(self, u, v) -> torch.Tensor:
+        """(Q,) int8 label-only verdicts; on an auto-partitioned index
+        ``distributed.distributed_label_verdicts`` over its mesh."""
+        if self.scheme is not None:
+            from . import distributed as D
+            return D.distributed_label_verdicts(self, self.scheme, u, v)
         self._whole("label_verdicts", _SERVE_SHARD)
         dev = self.device
         return Q.label_verdicts(
@@ -280,7 +317,14 @@ class DBLIndex:
         ``build``: a fixpoint cut off at ``max_iters`` leaves labels stale,
         so it warns, raises, or ("defer") only sets the sticky
         ``saturated`` flag.  Plug-in families run their insert hooks over
-        the extended graph."""
+        the extended graph.  An auto-partitioned index runs
+        ``distributed.distributed_insert`` (edge-partitioned rounds, bool
+        planes whatever ``plane_repr`` says: the planes are equal)."""
+        if self.scheme is not None:
+            from . import distributed as D
+            P.check_plane_repr(plane_repr)
+            return D.distributed_insert(self, self.scheme, new_src, new_dst,
+                                        max_iters=max_iters, check=check)
         self._whole("insert_edges",
                     "repro_torch.core.distributed.insert_vertex_sharded")
         _check_mode(check)
@@ -310,7 +354,11 @@ class DBLIndex:
     def delete_edges(self, del_src, del_dst) -> "DBLIndex":
         """Tombstone every live edge matching a (src, dst) pair: O(m) mask
         work, no label recomputation.  The returned index is dirty until
-        ``rebuild()``."""
+        ``rebuild()``.  On an auto-partitioned index each rank tombstones
+        its block of the edge slots (a slot's fate is its own)."""
+        if self.scheme is not None:
+            from . import distributed as D
+            return D.scheme_delete(self, del_src, del_dst)
         g2, epoch2 = U.delete_and_mark(
             self.graph, np.asarray(del_src, np.int32),
             np.asarray(del_dst, np.int32), self.epoch)
@@ -339,7 +387,16 @@ class DBLIndex:
         computed.  ``compact`` squeezes tombstones out of the edge arrays
         (slots renumber: a rebuild starts a new snapshot lineage).  The
         snapshot epoch goes up by one; ``saturated`` reflects this
-        rebuild's own fixpoints, surfaced by ``check`` as in ``build``."""
+        rebuild's own fixpoints, surfaced by ``check`` as in ``build``.
+        An auto-partitioned index is gathered, rebuilt on every rank and
+        laid out on its mesh again."""
+        if self.scheme is not None:
+            from . import distributed as D
+            idx, info = self._gathered().rebuild_info(
+                mode=mode, selection=selection, leaf_r=leaf_r,
+                max_iters=max_iters, compact=compact, check=check,
+                delta_threshold=delta_threshold, plane_repr=plane_repr)
+            return D.shard_index(idx, self.scheme), info
         self._whole("rebuild_info",
                     "repro_torch.core.distributed.rebuild_vertex_sharded")
         if mode not in ("full", "delta", "auto"):
@@ -524,6 +581,8 @@ class DBLIndex:
     def density(self) -> dict:
         """Mean label bits per vertex row, per plane (float32, as in the
         reference)."""
+        if self.scheme is not None:
+            return self._gathered().density()
         self._whole("density")
         return {name: float(bitset.unpack(getattr(self.packed, name),
                                           getattr(self, name).shape[1])
@@ -575,7 +634,10 @@ class DBLIndex:
 
     def to_numpy(self) -> dict:
         """Inverse of ``from_numpy``; packed words come out as uint32, the
-        reference's word type."""
+        reference's word type.  An auto-partitioned index is gathered
+        first."""
+        if self.scheme is not None:
+            return self._gathered().to_numpy()
         self._whole("to_numpy")
         g = self.graph
         out = {"graph.src": g.src, "graph.dst": g.dst, "graph.n": g.n,

@@ -1,6 +1,24 @@
-"""The vertex-sharded DBL lifecycle over ``torch.distributed`` (SPMD).
+"""Sharded DBL over ``torch.distributed`` (SPMD): two schemes.
 
-One process per shard runs the same host program.  Label planes (bool and
+**Auto-partitioned scheme** (the reference's "GSPMD scheme";
+:func:`index_shardings`, :func:`shard_index`, :func:`distributed_build`,
+:func:`distributed_insert`): on a launch mesh (``launch.mesh.Mesh``),
+every array leaf of the index is split into contiguous blocks over all
+of the mesh's axes, flattened (``launch.sharding.Layout``): the plane
+rows, the packed words, the leaf masks and the edge arrays.  The index
+records its mesh (``DBLIndex.scheme``) and stays in that layout across
+insert batches.  Where the reference's partitioner materializes the
+exchanges the unmodified core code needs, this module makes them
+explicit: a fixpoint gathers the planes once, each rank relaxes its own
+block of the edges against the whole plane (``propagate``'s
+``combine``), and one ``all_reduce`` a round (MAX on the uint8 OR planes,
+MIN on the int32 rank planes) merges the ranks' planes; every rank tests
+convergence on the merged plane, and keeps its rows at the end.  The
+query path gathers the packed rows.  :func:`shard_index` re-places an
+index onto a mesh of another shape (elastic).
+
+**Vertex-sharded scheme** (the rest of this module).  One process per
+shard runs the same host program.  Label planes (bool and
 packed, and the "il" rank planes) are row-partitioned: rank ``r`` of ``d``
 holds rows ``[r * n_loc, (r + 1) * n_loc)``.  The graph, the landmarks,
 the leaf masks, the epochs and the host halves of the shard plans are
@@ -17,6 +35,13 @@ to the replicated ``DBLIndex``.
     idx = idx.delete_edges(src, dst)
     idx, plan, info = rebuild_vertex_sharded(idx, plan, mode="delta")
 
+and the auto-partitioned one:
+
+    mesh = launch.mesh.make_mesh_compat((2, 2), ("data", "model"))
+    idx = distributed_build(g, mesh, n_cap=n)
+    idx = distributed_insert(idx, mesh, src, dst)
+    idx = shard_index(idx, make_mesh_compat((4,), ("data",)))
+
 Every rank must call these with the same arguments in the same order: a
 rank that skips a call leaves the others blocked in a collective.
 """
@@ -31,6 +56,9 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dbl_query.ops import verdicts_device
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.sharding import (P, Layout, reach_vertex_shardings,
+                                         relayout)
 from . import families as F
 from . import graph as G
 from . import labels as L
@@ -38,10 +66,11 @@ from . import planes as PL
 from . import query as Q
 from . import select as S
 from . import update as U
-from .dbl import DBLIndex, _check_mode, _surface
+from .dbl import (DBLIndex, LabelSaturationError,  # noqa: F401
+                  LabelSaturationWarning, _PLANES, _check_mode, _surface)
 from .graph import Graph
 from .interval import rank_plane
-from .propagate import check_halo_mode
+from .propagate import check_halo_mode, check_plane_repr
 
 
 #: the axis a query mesh splits: the lanes of a query batch
@@ -121,17 +150,54 @@ def fan_out(mesh: VertexMesh, verdicts, u: torch.Tensor,
     return out[:q]
 
 
-def distributed_label_verdicts(idx: DBLIndex, mesh: VertexMesh, u, v
-                               ) -> torch.Tensor:
+def flat_rank(mesh: Mesh) -> int:
+    """This rank's index on a launch mesh's axes, flattened row-major: its
+    block of a leaf split over every axis.  ``make_mesh_compat`` lays the
+    world out row-major, so it is the global rank."""
+    return int(np.ravel_multi_index(mesh.coords, mesh.shape))
+
+
+def _world_group(mesh: Mesh):
+    """The process group of all of a live launch mesh's ranks: the whole
+    world, which ``make_mesh_compat`` covers."""
+    if mesh.abstract:
+        raise ValueError("an abstract mesh has no ranks")
+    world = dist.get_world_size()
+    if mesh.size != world:
+        raise ValueError(f"a {mesh.shape} mesh covers {mesh.size} ranks; "
+                         f"the world has {world}")
+    return dist.group.WORLD
+
+
+def flat_query_mesh(mesh: Mesh) -> VertexMesh:
+    """The query mesh that splits lanes over every axis of a launch mesh,
+    flattened: the reference's ``reach_query_shardings``."""
+    return VertexMesh(_world_group(mesh), flat_rank(mesh), mesh.size,
+                      mesh.device, QUERY_AXIS)
+
+
+def distributed_label_verdicts(idx: DBLIndex, mesh, u, v) -> torch.Tensor:
     """Label verdicts (``DBLIndex.label_verdicts``) with the query batch
-    split over a query mesh: each rank runs the verdict kernel (its plain
-    version on the CPU) on its block of the lanes against its whole
-    replicated ``idx``, and one all-gather gives every rank the (Q,) int8
-    verdicts."""
+    split over a mesh: a query mesh (:func:`query_mesh`) or a launch mesh
+    (split over all of its axes, flattened).  Each rank runs the verdict
+    kernel (its plain version on the CPU) on its block of the lanes
+    against the whole packed rows, and one all-gather gives every rank the
+    (Q,) int8 verdicts.  An index of the auto-partitioned scheme gathers
+    its packed rows (and interval planes) first: the gather the
+    reference's partitioner makes on the query path."""
     if idx.layout.sharded:
         raise ValueError("a query mesh serves a replicated index; a "
                          "vertex-sharded one is served by "
                          "QueryEngine(index, vertex_mesh=mesh)")
+    if isinstance(mesh, Mesh):
+        mesh = flat_query_mesh(mesh)
+    packed, il = idx.packed, idx.il
+    if idx.scheme is not None:
+        lays = index_shardings(idx.scheme, il=il is not None)
+        packed = Q.PackedLabels(*(lay.gather(w) for w, lay in
+                                  zip(packed, lays.packed)))
+        if il is not None:
+            il = (lays.il_in.gather(il[0]), lays.il_out.gather(il[1]))
     dev = idx.device
     u = torch.as_tensor(np.asarray(u, np.int32)).to(dev)
     v = torch.as_tensor(np.asarray(v, np.int32)).to(dev)
@@ -139,9 +205,306 @@ def distributed_label_verdicts(idx: DBLIndex, mesh: VertexMesh, u, v
     def verdicts(a, b):
         fresh = torch.full(a.shape, Q.FRESH_CUT, dtype=torch.int32,
                            device=dev)
-        return verdicts_device(idx.packed, a, b, fresh, 0, None, None,
-                               idx.il, out_dtype=torch.int8)
+        return verdicts_device(packed, a, b, fresh, 0, None, None, il,
+                               out_dtype=torch.int8)
     return fan_out(mesh, verdicts, u, v)
+
+
+# ===================================================================
+# The auto-partitioned scheme (the reference's GSPMD scheme)
+# ===================================================================
+@dataclass
+class SchemeTraffic:
+    """The collectives of the auto-partitioned lifecycle: the merging
+    ``all_reduce`` of every fixpoint round and the gathers of the planes
+    at an insert's entry, in calls and bytes (each rank's buffer)."""
+    all_reduce_calls: int = 0
+    all_reduce_bytes: int = 0
+    all_gather_calls: int = 0
+    all_gather_bytes: int = 0
+
+    def as_dict(self) -> dict:
+        return dict(self.__dict__)
+
+
+class _Combine:
+    """``propagate``'s ``combine`` over a launch mesh's ranks: one
+    ``all_reduce`` of the whole plane, MAX for the uint8 OR planes (a bool
+    plane goes as its uint8 view: NCCL takes no bool), MIN for the int32
+    rank planes."""
+
+    def __init__(self, mesh: Mesh, traffic: SchemeTraffic | None):
+        self.group = _world_group(mesh)
+        self.traffic = traffic
+
+    def __call__(self, plane: torch.Tensor, monoid: str) -> None:
+        buf = plane.view(torch.uint8) if plane.dtype == torch.bool \
+            else plane
+        op = dist.ReduceOp.MAX if monoid == "or" else dist.ReduceOp.MIN
+        dist.all_reduce(buf, op=op, group=self.group)
+        if self.traffic is not None:
+            self.traffic.all_reduce_calls += 1
+            self.traffic.all_reduce_bytes += buf.numel() * buf.element_size()
+
+
+def index_shardings(mesh: Mesh, *, il: bool = False) -> DBLIndex:
+    """A DBLIndex-shaped tree of ``launch.sharding.Layout``s: the bool,
+    packed and ``il`` planes (rows first) ``P(all_axes, None)``, the
+    (n_cap,) and (m_cap,) vectors ``P(all_axes)`` (split data-major over
+    the axes, flattened), scalars and the landmarks ``P()``.  ``il=True``
+    adds the interval family's leaves; the default keeps them None, so
+    the tree matches a default-families index."""
+    ax = tuple(mesh.axis_names)
+    vec = Layout(mesh, P(ax))
+    plane = Layout(mesh, P(ax, None))
+    scal = Layout(mesh, P())
+    g = Graph(src=vec, dst=vec, n=scal, m=scal, del_at=vec, del_epoch=scal)
+    packed = Q.PackedLabels(plane, plane, plane, plane)
+    return DBLIndex(graph=g, landmarks=scal, dl_in=plane, dl_out=plane,
+                    bl_in=plane, bl_out=plane, packed=packed,
+                    bl_sources=vec, bl_sinks=vec, epoch=scal,
+                    label_del_epoch=scal, saturated=scal,
+                    il_in=plane if il else None,
+                    il_out=plane if il else None,
+                    il_seed=scal if il else None)
+
+
+def map_index(fn, idx: DBLIndex, *trees: DBLIndex, **kw) -> DBLIndex:
+    """``fn(tensor, *leaves)`` over every tensor leaf of ``idx``, with the
+    same leaf of each of ``trees`` (layout trees, say); host leaves
+    (``m``, the epochs, the flags) as they are; ``kw`` replaces other
+    fields."""
+    def each(get):
+        return fn(get(idx), *(get(t) for t in trees))
+    graph = replace(idx.graph, **{
+        f: each(lambda t, f=f: getattr(t.graph, f))
+        for f in ("src", "dst", "n", "del_at")})
+    fields = ["landmarks", *_PLANES, "bl_sources", "bl_sinks"]
+    if idx.il_in is not None:
+        fields += ["il_in", "il_out"]
+    out = {f: each(lambda t, f=f: getattr(t, f)) for f in fields}
+    packed = Q.PackedLabels(*(each(lambda t, f=f: getattr(t.packed, f))
+                              for f in _PLANES))
+    return replace(idx, graph=graph, packed=packed, **out, **kw)
+
+
+def _block(x: torch.Tensor, lay: Layout) -> torch.Tensor:
+    """This rank's block of a whole leaf, a tensor of its own on the
+    mesh's device; raises when the leaf does not split evenly."""
+    lay.local_shape(x.shape)
+    part = lay.shard(x)
+    return torch.empty(part.shape, dtype=part.dtype,
+                       device=lay.mesh.device).copy_(part)
+
+
+def shard_index(idx: DBLIndex, mesh: Mesh) -> DBLIndex:
+    """This rank's block of every leaf of ``idx`` in
+    ``index_shardings(mesh)``, on ``mesh.device``, recorded as
+    ``scheme=mesh``.  ``idx`` is whole (replicated) or already in the
+    scheme on another mesh: then each leaf is gathered over the old
+    layout and sliced for the new one (``relayout``), the elastic
+    re-placement.  A vertex-sharded index is refused."""
+    if idx.layout.sharded:
+        raise ValueError("shard_index takes a replicated index or one of "
+                         "the auto-partitioned scheme; a vertex-sharded "
+                         "one keeps its own layout")
+    lays = index_shardings(mesh, il=idx.il_in is not None)
+    if idx.scheme is None:
+        return map_index(_block, idx, lays, scheme=mesh)
+    old = index_shardings(idx.scheme, il=idx.il_in is not None)
+    return map_index(lambda x, src, dst: relayout(x, src, dst).contiguous()
+                     .to(mesh.device), idx, old, lays, scheme=mesh)
+
+
+def gather_index(idx: DBLIndex) -> DBLIndex:
+    """The whole index from an auto-partitioned one, on every rank (one
+    all-gather a split leaf)."""
+    if idx.scheme is None:
+        return idx
+    lays = index_shardings(idx.scheme, il=idx.il_in is not None)
+    return map_index(lambda x, lay: lay.gather(x) if lay.split_axes()
+                      else x, idx, lays, scheme=None)
+
+
+def _edge_view(g: Graph, mesh: Mesh) -> Graph:
+    """This rank's block of the edge slots as a graph of its own: ``m``
+    counts the block's slots below the global high-water mark, so
+    ``graph.edge_mask`` and ``graph.delete_edges`` read it as they read a
+    whole graph."""
+    blk = g.src.shape[0]
+    lo = flat_rank(mesh) * blk
+    return replace(g, m=min(max(g.m - lo, 0), blk))
+
+
+def _insert_block(g: Graph, mesh: Mesh, ns: torch.Tensor,
+                  nd: torch.Tensor) -> Graph:
+    """``graph.insert_edges`` on this rank's block of the edge slots: the
+    batch goes to global slots ``[m, m + b)``, each rank writes those in
+    its block, and ``m`` and ``n`` move on every rank."""
+    blk = g.src.shape[0]
+    lo = flat_rank(mesh) * blk
+    slots = g.m + torch.arange(ns.shape[0], device=g.device)
+    keep = (slots >= lo) & (slots < lo + blk)
+    src, dst = g.src.clone(), g.dst.clone()
+    src[slots[keep] - lo] = ns[keep]
+    dst[slots[keep] - lo] = nd[keep]
+    n = g.n
+    if ns.numel():
+        nmax = torch.maximum(ns.max(), nd.max()) + 1
+        n = torch.maximum(n, nmax.to(torch.int32))
+    return replace(g, src=src, dst=dst, n=n, m=g.m + int(ns.shape[0]))
+
+
+def distributed_build(g: Graph, mesh: Mesh, *, n_cap: int, k: int = 64,
+                      k_prime: int = 64, selection: str = "product",
+                      leaf_r: int = 0, max_iters: int = 256,
+                      check: str = "warn", plane_repr: str = "bool",
+                      families=F.DEFAULT_FAMILIES,
+                      il_dim: int = F.DEFAULT_IL_DIM, il_seed: int = 0,
+                      rounds=None, traffic: SchemeTraffic | None = None
+                      ) -> DBLIndex:
+    """Alg 1 in the auto-partitioned scheme, bitwise equal to
+    ``DBLIndex.build``.  The landmarks and the leaf masks come from the
+    whole graph ``g`` every rank is given; each fixpoint relaxes this
+    rank's block of the edges against the whole plane and merges the
+    planes with one ``all_reduce`` a round; each rank keeps its rows and
+    packs its words.  The rounds run on bool planes whatever
+    ``plane_repr`` says (the planes are equal either way).  ``rounds``, a
+    list, gets each fixpoint's ``iters``; ``traffic`` (a
+    :class:`SchemeTraffic`) counts the collectives."""
+    _check_mode(check)
+    check_plane_repr(plane_repr)
+    plugin_fams = F.plugins(families)
+    lays = index_shardings(mesh, il=bool(plugin_fams))
+    g = g.to(mesh.device)
+    landmarks = S.select_landmarks(g, n_cap=n_cap, k=k, method=selection)
+    sources, sinks = S.leaf_masks(g, n_cap=n_cap, leaf_r=leaf_r)
+    g_blk = replace(g, src=_block(g.src, lays.graph.src),
+                    dst=_block(g.dst, lays.graph.dst),
+                    del_at=_block(g.del_at, lays.graph.del_at))
+    view = _edge_view(g_blk, mesh)
+    comb = _Combine(mesh, traffic)
+    dl_in, dl_out, it_dl = L.build_dl(view, landmarks, n_cap=n_cap, k=k,
+                                      max_iters=max_iters, combine=comb)
+    bl_in, bl_out, it_bl = L.build_bl(view, sources, sinks, n_cap=n_cap,
+                                      k_prime=k_prime, max_iters=max_iters,
+                                      combine=comb)
+    iters = it_dl + it_bl
+    il_kw = {}
+    for fam in plugin_fams:
+        p_in, p_out, it_f = fam.build(view, n_cap=n_cap, dim=il_dim,
+                                      seed=il_seed, max_iters=max_iters,
+                                      combine=comb)
+        il_kw = dict(il_in=_block(p_in, lays.il_in),
+                     il_out=_block(p_out, lays.il_out), il_seed=int(il_seed))
+        iters = iters + it_f
+    _note(rounds, *iters)
+    sat = U.saturated(iters, max_iters)
+    _surface(sat, check, max_iters)
+    rows = [_block(x, lays.dl_in) for x in (dl_in, dl_out, bl_in, bl_out)]
+    return DBLIndex(g_blk, landmarks, *rows, Q.pack_labels(*rows),
+                    _block(sources, lays.bl_sources),
+                    _block(sinks, lays.bl_sinks), epoch=0,
+                    label_del_epoch=g.del_epoch, saturated=sat,
+                    scheme=mesh, **il_kw)
+
+
+def distributed_insert(idx: DBLIndex, mesh: Mesh, new_src, new_dst, *,
+                       max_iters: int = 256, check: str = "warn",
+                       rounds=None, traffic: SchemeTraffic | None = None
+                       ) -> DBLIndex:
+    """Batched Alg-3 insert in the auto-partitioned scheme, bitwise equal
+    to ``DBLIndex.insert_edges``; the index comes out in
+    ``index_shardings(mesh)`` (an index on another mesh, or a whole one,
+    is placed there first), with no host round trip of the planes.  The
+    planes are gathered once; the seeding runs on the whole planes, each
+    fixpoint round relaxes this rank's block of the edges and one
+    ``all_reduce`` merges the planes (``update.update_inserted``, and the
+    "il" planes through ``insert_update_plugin``); each rank keeps its
+    rows and re-packs its words.  ``check`` is "warn", "raise" or "defer"
+    as in ``DBLIndex.insert_edges``: defer only folds the flag into the
+    sticky ``saturated``.  ``rounds`` and ``traffic`` as in
+    :func:`distributed_build`."""
+    if check not in ("warn", "raise", "defer"):
+        raise ValueError(f"unknown check mode {check!r}")
+    if idx.scheme != mesh:
+        idx = shard_index(idx, mesh)
+    il = idx.il_in is not None
+    lays = index_shardings(mesh, il=il)
+    dev = mesh.device
+    ns = torch.from_numpy(np.asarray(new_src, np.int32).ravel()).to(dev)
+    nd = torch.from_numpy(np.asarray(new_dst, np.int32).ravel()).to(dev)
+    comb = _Combine(mesh, traffic)
+
+    def whole(x, lay):
+        """A whole plane of its own: the fixpoints update it in place."""
+        if not lay.split_axes():
+            return x.clone()
+        if traffic is not None:
+            traffic.all_gather_calls += 1
+            traffic.all_gather_bytes += x.numel() * x.element_size()
+        return lay.gather(x).contiguous()
+
+    g2 = _insert_block(idx.graph, mesh, ns, nd)
+    view = _edge_view(g2, mesh)
+    planes = [whole(getattr(idx, f), getattr(lays, f)) for f in _PLANES]
+    planes, iters = U.update_inserted(view, planes, ns, nd, n_cap=idx.n_cap,
+                                      max_iters=max_iters, inplace=True,
+                                      combine=comb)
+    il_kw = {}
+    if il:
+        p_in, p_out, it_il = U.insert_update_plugin(
+            "il", view, whole(idx.il_in, lays.il_in),
+            whole(idx.il_out, lays.il_out), ns, nd, n_cap=idx.n_cap,
+            max_iters=max_iters, combine=comb)
+        il_kw = dict(il_in=_block(p_in, lays.il_in),
+                     il_out=_block(p_out, lays.il_out))
+        iters = iters + it_il
+    _note(rounds, *iters)
+    sat = U.saturated(iters, max_iters)
+    _surface(sat, check, max_iters)
+    rows = [_block(x, lays.dl_in) for x in planes]
+    return replace(idx, graph=g2, dl_in=rows[0], dl_out=rows[1],
+                   bl_in=rows[2], bl_out=rows[3], packed=Q.pack_labels(*rows),
+                   epoch=idx.epoch + 1, saturated=idx.saturated or sat,
+                   **il_kw)
+
+
+def scheme_delete(idx: DBLIndex, del_src, del_dst) -> DBLIndex:
+    """``DBLIndex.delete_edges`` on an auto-partitioned index: each rank
+    tombstones the matching live slots of its block (no collective)."""
+    view = _edge_view(idx.graph, idx.scheme)
+    g2, epoch2 = U.delete_and_mark(view, np.asarray(del_src, np.int32),
+                                   np.asarray(del_dst, np.int32), idx.epoch)
+    return replace(idx, graph=replace(g2, m=idx.graph.m), epoch=epoch2)
+
+
+def _launch_mesh(mesh) -> Mesh:
+    """A vertex mesh as the 1-axis launch mesh its layouts are over."""
+    if isinstance(mesh, Mesh):
+        return mesh
+    return Mesh((mesh.axis,), (mesh.size,), (mesh.rank,), mesh.device,
+                {mesh.axis: mesh.group})
+
+
+def vertex_index_shardings(mesh, *, il: bool = False) -> DBLIndex:
+    """The vertex-sharded layout as a DBLIndex-shaped tree of ``Layout``s
+    over a 1-axis mesh (a vertex mesh, or a 1-axis launch mesh): the bool
+    and packed planes (and the ``il`` planes) and the (n_cap,) leaf masks
+    row-split, everything else (graph, landmarks, epochs) replicated, as
+    the reference places them.  A shard of this port keeps its leaf masks
+    whole (the delta rebuild reads them whole): their layout's block is
+    the rows of them that the shard's planes hold."""
+    plane, vec, rep = reach_vertex_shardings(_launch_mesh(mesh))
+    g = Graph(src=rep, dst=rep, n=rep, m=rep, del_at=rep, del_epoch=rep)
+    packed = Q.PackedLabels(plane, plane, plane, plane)
+    return DBLIndex(graph=g, landmarks=rep, dl_in=plane, dl_out=plane,
+                    bl_in=plane, bl_out=plane, packed=packed,
+                    bl_sources=vec, bl_sinks=vec, epoch=rep,
+                    label_del_epoch=rep, saturated=rep,
+                    il_in=plane if il else None,
+                    il_out=plane if il else None,
+                    il_seed=rep if il else None)
 
 
 def place_vertex_sharded(idx: DBLIndex, mesh: VertexMesh) -> DBLIndex:

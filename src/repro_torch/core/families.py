@@ -46,6 +46,10 @@ class LabelFamily:
       the repair over the live edge set (delta and full rebuilds alike)
     - ``negative(rows...) -> (Q,) bool``, the negative-prune predicate on
       gathered query rows
+
+    ``build`` and ``insert_update`` also take ``combine=`` (``propagate``'s
+    edge-partitioned rounds, for ``core.distributed``'s auto-partitioned
+    scheme).
     """
     name: str
     monoid: str           # "or" (bit lanes) | "min" (rank lanes)

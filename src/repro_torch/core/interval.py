@@ -54,31 +54,34 @@ def rank_plane(n_cap: int, dim: int, seed: int, device=None) -> torch.Tensor:
 
 
 def build_il(g: G.Graph, *, n_cap: int, dim: int, seed: int,
-             max_iters: int = 256
+             max_iters: int = 256, combine=None
              ) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
     """Alg-1 analogue: two MIN fixpoints over the live edges from the rank
     seeds.  Returns (il_in, il_out, [iters_in, iters_out]); an iteration
-    count of ``max_iters + 1`` means that fixpoint was cut off."""
+    count of ``max_iters + 1`` means that fixpoint was cut off.
+    ``combine`` runs them edge-partitioned (``propagate``)."""
     base = rank_plane(n_cap, dim, seed, g.device)
     live = G.edge_mask(g)
     frontier = torch.ones(n_cap, dtype=torch.bool, device=g.device)
     il_in, it0 = P.propagate(base, g.src, g.dst, live, frontier,
-                             n_cap=n_cap, monoid="min", max_iters=max_iters)
+                             n_cap=n_cap, monoid="min", max_iters=max_iters,
+                             combine=combine)
     il_out, it1 = P.propagate(base, g.src, g.dst, live, frontier,
                               n_cap=n_cap, monoid="min", max_iters=max_iters,
-                              reverse=True)
+                              reverse=True, combine=combine)
     return il_in, il_out, [it0, it1]
 
 
 def insert_update_il(g2: G.Graph, il_in: torch.Tensor, il_out: torch.Tensor,
                      new_src: torch.Tensor, new_dst: torch.Tensor, *,
-                     n_cap: int, max_iters: int = 256
+                     n_cap: int, max_iters: int = 256, combine=None
                      ) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
     """Alg-3 analogue; ``g2`` already holds the new edges.  Edge (u, v)
     hands u's ancestor mins to v (``in[v] ← min(in[v], in[u])``) and v's
     reach mins to u (``out[u] ← min(out[u], out[v])``); each fixpoint then
     pushes from the rows the seeding lowered.  The input planes are left
-    as they were."""
+    as they were.  ``combine`` as in :func:`build_il`: ``g2`` then holds
+    this process's block of the edges, the planes are whole."""
     live = G.edge_mask(g2)
     new_src = new_src.to(device=g2.device, dtype=torch.int32)
     new_dst = new_dst.to(device=g2.device, dtype=torch.int32)
@@ -90,13 +93,13 @@ def insert_update_il(g2: G.Graph, il_in: torch.Tensor, il_out: torch.Tensor,
                                           new_dst, n_cap)
     il_in2, it0 = P.propagate(seeded_in, g2.src, g2.dst, live, fr_in,
                               n_cap=n_cap, monoid="min", max_iters=max_iters,
-                              inplace=True)
+                              inplace=True, combine=combine)
     seeded_out, fr_out = P.seed_scatter_min(il_out, gather(il_out, new_dst),
                                             new_src, n_cap)
     il_out2, it1 = P.propagate(seeded_out, g2.src, g2.dst, live, fr_out,
                                n_cap=n_cap, monoid="min",
                                max_iters=max_iters, reverse=True,
-                               inplace=True)
+                               inplace=True, combine=combine)
     return il_in2, il_out2, [it0, it1]
 
 

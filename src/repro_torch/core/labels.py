@@ -15,40 +15,43 @@ from .select import leaf_hash
 
 
 def build_dl(g: Graph, landmarks: torch.Tensor, *, n_cap: int, k: int,
-             max_iters: int = 256, plane_repr: str = "bool"
+             max_iters: int = 256, plane_repr: str = "bool", combine=None
              ) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
     """-> (dl_in, dl_out, [iters_in, iters_out]), planes (n_cap, k) uint8.
     An iteration count of ``max_iters + 1`` means that fixpoint was cut
     off (see ``propagate``).  ``plane_repr="packed"`` runs both fixpoints
-    on int32 words (bitwise-equal planes)."""
+    on int32 words (bitwise-equal planes).  ``combine`` runs them
+    edge-partitioned: ``g`` holds this process's block of the edges
+    (``propagate``'s ``combine``)."""
     live = edge_mask(g)
     seed = dl_seed_plane(landmarks, n_cap=n_cap, k=k)
     frontier = seed.any(-1)
     dl_in, it0 = propagate(seed, g.src, g.dst, live, frontier,
                            n_cap=n_cap, max_iters=max_iters,
-                           plane_repr=plane_repr)
+                           plane_repr=plane_repr, combine=combine)
     dl_out, it1 = propagate(seed, g.src, g.dst, live, frontier,
                             n_cap=n_cap, max_iters=max_iters, reverse=True,
-                            plane_repr=plane_repr)
+                            plane_repr=plane_repr, combine=combine)
     return dl_in, dl_out, [it0, it1]
 
 
 def build_bl(g: Graph, sources: torch.Tensor, sinks: torch.Tensor, *,
              n_cap: int, k_prime: int, max_iters: int = 256,
-             plane_repr: str = "bool"
+             plane_repr: str = "bool", combine=None
              ) -> tuple[torch.Tensor, torch.Tensor, list[int]]:
     """-> (bl_in, bl_out, [iters_in, iters_out]) hashed leaf planes
     (n_cap, k') uint8: BL_in(v) holds h(u) for source leaves u reaching v,
-    BL_out(v) holds h(u) for sink leaves u reachable from v."""
+    BL_out(v) holds h(u) for sink leaves u reachable from v.  ``combine``
+    as in :func:`build_dl`."""
     live = edge_mask(g)
     seed_in = bl_seed_plane(sources, n_cap=n_cap, k_prime=k_prime)
     bl_in, it0 = propagate(seed_in, g.src, g.dst, live, sources,
                            n_cap=n_cap, max_iters=max_iters,
-                           plane_repr=plane_repr)
+                           plane_repr=plane_repr, combine=combine)
     seed_out = bl_seed_plane(sinks, n_cap=n_cap, k_prime=k_prime)
     bl_out, it1 = propagate(seed_out, g.src, g.dst, live, sinks,
                             n_cap=n_cap, max_iters=max_iters, reverse=True,
-                            plane_repr=plane_repr)
+                            plane_repr=plane_repr, combine=combine)
     return bl_in, bl_out, [it0, it1]
 
 

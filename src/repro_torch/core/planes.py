@@ -92,6 +92,28 @@ def vertex_layout(mesh) -> PlaneLayout:
                        int(mesh.rank))
 
 
+def layout_of(obj) -> PlaneLayout:
+    """The layout of the rows a plane holder holds, as the reference's
+    ``layout_of`` reads it off a plane's placement: rows split over more
+    than one process is ``"vertex_sharded"`` along the first axis that
+    splits them, anything else ``REPLICATED``.  A torch tensor does not
+    know it is a shard, so this reads what the port records: an index of
+    the auto-partitioned scheme (``scheme``, a launch mesh, whose rows are
+    split over every axis, flattened), or the ``layout`` of an index or a
+    ``PlaneStore``.  A bare tensor is ``REPLICATED``."""
+    scheme = getattr(obj, "scheme", None)
+    if scheme is not None:
+        if scheme.size > 1:
+            rank = int(np.ravel_multi_index(scheme.coords, scheme.shape))
+            return PlaneLayout("vertex_sharded", scheme.axis_names[0],
+                               scheme.size, rank)
+        return REPLICATED
+    layout = getattr(obj, "layout", REPLICATED)
+    if not isinstance(layout, PlaneLayout) or layout.shards == 1:
+        return REPLICATED
+    return layout
+
+
 def _check_rows(n_cap: int, layout: PlaneLayout) -> int:
     if n_cap % layout.shards:
         raise ValueError(f"n_cap={n_cap} must divide evenly into "
@@ -137,6 +159,10 @@ class PlaneStore:
     @property
     def k(self) -> int:
         return self.dl_in.shape[1]
+
+    @property
+    def k_prime(self) -> int:
+        return self.bl_in.shape[1]
 
     # ---- seed construction (Alg 1 line 1) -------------------------------
     @staticmethod
@@ -312,6 +338,14 @@ class ShardPlan(NamedTuple):
     edge_granule: int = 1024
     halo_granule: int = 64
     hub_count: int = 0    # the hub lane's width (0: no hub lane)
+
+    @property
+    def shards(self) -> int:
+        return int(self.mesh.size)
+
+    @property
+    def axis(self) -> str:
+        return self.mesh.axis
 
 
 def _round_up(x: int, granule: int) -> int:

@@ -23,18 +23,33 @@ path's.  The MIN monoid has no packed form.
 
 Gathers clamp and scatters drop ids outside ``[0, n_cap)``, as the
 reference's do.
+
+**Edge-partitioned rounds** (``combine=``, the auto-partitioned scheme of
+``core.distributed``): each process relaxes only its block of the edge
+arrays against the whole plane, and ``combine`` merges the processes'
+planes in place after every round (one ``all_reduce`` under the monoid).
+Every process starts a round from the same plane and reads the same
+merged plane after it, so the rounds, the frontier and ``iters`` equal the
+single-process fixpoint's, cut off at ``max_iters`` or not.
 """
 from __future__ import annotations
+
+from typing import Literal
 
 import torch
 
 from . import bitset
 
-PLANE_REPRS = ("bool", "packed")
+Monoid = Literal["or", "min"]
+PlaneRepr = Literal["bool", "packed"]
 
 #: How the vertex-sharded fixpoint exchanges boundary rows: ``"dense"``
 #: ships every halo slot every round (``planes.halo_propagate``);
-#: ``"sparse"`` is the compacted changed-row exchange, not ported yet.
+#: ``"sparse"`` is the compacted changed-row exchange (``core.halo``),
+#: bitwise equal to dense.
+HaloMode = Literal["dense", "sparse"]
+
+PLANE_REPRS = ("bool", "packed")
 HALO_MODES = ("dense", "sparse")
 
 #: the MIN monoid's identity: an inactive int32 contribution
@@ -94,7 +109,8 @@ def propagate(labels: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               live: torch.Tensor, frontier: torch.Tensor, *, n_cap: int,
               monoid: str = "or", max_iters: int = 256,
               reverse: bool = False, plane_repr: str = "bool",
-              inplace: bool = False) -> tuple[torch.Tensor, int]:
+              inplace: bool = False, combine=None
+              ) -> tuple[torch.Tensor, int]:
     """Run the fixpoint.  Returns (labels, iters).
 
     ``iters`` is the number of rounds run, except that a loop cut off at
@@ -110,12 +126,20 @@ def propagate(labels: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     frontier : (n_cap,) bool initial changed set (seeds).
     plane_repr : ``"packed"`` runs the OR fixpoint on int32 words, bitwise
                equal to ``"bool"`` including ``iters``.
+    combine  : None, or ``combine(labels, monoid)``, which merges this
+               process's plane with the other processes' in place after
+               each round (the edge arrays are then this process's block
+               of them; see the module docstring).  Runs on
+               ``plane_repr="bool"``.
     """
     check_plane_repr(plane_repr)
     if monoid not in ("or", "min"):
         raise ValueError(f"unknown monoid {monoid!r}")
     if plane_repr == "packed" and monoid != "or":
         raise ValueError("plane_repr='packed' supports the OR monoid only")
+    if plane_repr == "packed" and combine is not None:
+        raise ValueError("combine= merges bool planes; use "
+                         "plane_repr='bool'")
     if reverse:
         src, dst = dst, src
     src = src.clamp(0, n_cap - 1).long()
@@ -126,15 +150,27 @@ def propagate(labels: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         return _propagate_packed(labels, src, dst, live, frontier, n_cap,
                                  max_iters)
     labels = labels if inplace else labels.clone()
+    if combine is not None:
+        labels = labels.contiguous()          # a collective's buffer
     reduce = "amax" if monoid == "or" else "amin"
     it = 0
     while it < max_iters and bool(frontier.any()):
         eidx = torch.nonzero(frontier[src] & live).squeeze(1)
         es, ed = src[eidx], dst[eidx]
-        old = labels[ed]
-        labels.index_reduce_(0, ed, labels[es], reduce, include_self=True)
-        changed = torch.zeros(n_cap, dtype=torch.bool, device=labels.device)
-        changed[ed] = (labels[ed] != old).any(-1)
+        if combine is None:
+            old = labels[ed]
+            labels.index_reduce_(0, ed, labels[es], reduce,
+                                 include_self=True)
+            changed = torch.zeros(n_cap, dtype=torch.bool,
+                                  device=labels.device)
+            changed[ed] = (labels[ed] != old).any(-1)
+        else:
+            # another process's edges may change any row
+            old = labels.clone()
+            labels.index_reduce_(0, ed, labels[es], reduce,
+                                 include_self=True)
+            combine(labels, monoid)
+            changed = (labels != old).any(-1)
         frontier = changed
         it += 1
     if bool(frontier.any()):

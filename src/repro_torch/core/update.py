@@ -40,6 +40,21 @@ def insert_and_update(g: G.Graph, dl_in, dl_out, bl_in, bl_out,
     engine's ``donate``), else left as they were.  ``plane_repr="packed"``
     runs the seeding and the fixpoints on int32 words (bitwise equal)."""
     g2 = G.insert_edges(g, new_src, new_dst)
+    planes, iters = update_inserted(
+        g2, (dl_in, dl_out, bl_in, bl_out), new_src, new_dst, n_cap=n_cap,
+        max_iters=max_iters, plane_repr=plane_repr, inplace=inplace)
+    return (g2, *planes, iters, epoch + 1)
+
+
+def update_inserted(g2: G.Graph, planes, new_src: torch.Tensor,
+                    new_dst: torch.Tensor, *, n_cap: int,
+                    max_iters: int = 256, plane_repr: str = "bool",
+                    inplace: bool = False, combine=None):
+    """The Alg-3 seeding and fixpoint of the four (dl_in, dl_out, bl_in,
+    bl_out) planes over ``g2``, which already holds the new edges.
+    Returns (planes', iters [4]).  ``combine`` runs the fixpoints
+    edge-partitioned (``propagate``): ``g2`` is then this process's block
+    of the edges, and the planes are whole."""
     live = G.edge_mask(g2)
     new_src = new_src.to(device=g2.device, dtype=torch.int32)
     new_dst = new_dst.to(device=g2.device, dtype=torch.int32)
@@ -51,25 +66,24 @@ def insert_and_update(g: G.Graph, dl_in, dl_out, bl_in, bl_out,
                                         inplace=inplace)
         return propagate(seeded, g2.src, g2.dst, live, frontier,
                          n_cap=n_cap, max_iters=max_iters, reverse=reverse,
-                         plane_repr=plane_repr, inplace=True)
+                         plane_repr=plane_repr, inplace=True,
+                         combine=combine)
 
-    dl_in2, it0 = run(dl_in, False)
-    dl_out2, it1 = run(dl_out, True)
-    bl_in2, it2 = run(bl_in, False)
-    bl_out2, it3 = run(bl_out, True)
-    return g2, dl_in2, dl_out2, bl_in2, bl_out2, [it0, it1, it2, it3], \
-        epoch + 1
+    out = [run(p, rev) for p, rev in zip(planes, (False, True, False, True))]
+    return [p for p, _ in out], [it for _, it in out]
 
 
 def insert_update_plugin(family: str, g2: G.Graph, p_in, p_out,
                          new_src: torch.Tensor, new_dst: torch.Tensor, *,
-                         n_cap: int, max_iters: int = 256):
+                         n_cap: int, max_iters: int = 256, combine=None):
     """Alg-3 maintenance of one plug-in label family (``core.families``):
     its ``insert_update`` hook.  ``g2`` already holds the new edges (run
-    this after ``insert_and_update``).  Returns (p_in', p_out', iters)."""
+    this after ``insert_and_update``).  Returns (p_in', p_out', iters).
+    ``combine`` as in :func:`update_inserted`."""
     from . import families as F
+    kw = {} if combine is None else dict(combine=combine)
     return F.get(family).insert_update(g2, p_in, p_out, new_src, new_dst,
-                                       n_cap=n_cap, max_iters=max_iters)
+                                       n_cap=n_cap, max_iters=max_iters, **kw)
 
 
 def delete_and_mark(g: G.Graph, del_src, del_dst, epoch: int = 0):

@@ -17,3 +17,5 @@ other.
 """
 from .dbl_query import dbl_query as _dbl_query  # noqa: F401  (registers)
 from .bfs_prune import bfs_prune as _bfs_prune  # noqa: F401  (registers)
+from .dbl_query.ops import query_verdicts  # noqa: F401
+from .bfs_prune.ops import admit_plane  # noqa: F401

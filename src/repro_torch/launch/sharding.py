@@ -23,8 +23,9 @@ over the axes its spec names.  Paths are written as the reference writes
 ``jax.tree_util`` key paths: dict keys as they are, list indices as
 digits, a NamedTuple's fields as ``.name``, joined by ``/``.
 
-The reference's ``reach_*`` layouts are not here: the port runs those
-layouts itself (``core.distributed``, ``core.planes.vertex_layout``).
+The ``reach_*`` layouts are the reachability index's: the query mesh's
+(lanes split, index replicated) and the vertex-sharded layout's, which
+``core.distributed`` runs with its own collectives.
 """
 from __future__ import annotations
 
@@ -321,6 +322,56 @@ def lm_cache_shardings(mesh, cache_shapes, *, long_context: bool) -> Any:
     spec = P(None, None, dp, model, None) if long_context \
         else P(None, dp, None, model, None)
     return _layouts(cache_shapes, mesh, lambda path, leaf, shape: spec)
+
+
+# ------------------------------------------------- reachability index
+def reach_query_shardings(mesh) -> tuple:
+    """The query engine's fan-out over a launch mesh: ``(query,
+    replicated)`` layouts, the (Q,) batch split over every axis,
+    flattened (``core.distributed.flat_query_mesh``), the label planes
+    replicated."""
+    return Layout(mesh, P(mesh_axes(mesh)["all"])), Layout(mesh, P())
+
+
+def reach_place_index(idx, mesh):
+    """A DBLIndex as the query engine over ``mesh`` serves it: whole
+    (replicated) on every rank, on the mesh's device.  An index of the
+    auto-partitioned scheme is gathered; a vertex-sharded one is
+    refused."""
+    from repro_torch.core import distributed as D
+    if idx.layout.sharded:
+        raise ValueError("a vertex-sharded index is served by "
+                         "QueryEngine(index, vertex_mesh=mesh)")
+    idx = D.gather_index(idx)
+    return D.map_index(lambda x: x.to(mesh.device), idx)
+
+
+def _one_axis(mesh) -> str:
+    if len(mesh.axis_names) != 1:
+        raise ValueError("vertex-sharded layout needs a 1-axis mesh, got "
+                         f"axes {mesh.axis_names}")
+    return mesh.axis_names[0]
+
+
+def reach_vertex_shardings(mesh) -> tuple:
+    """The vertex-sharded layout's primitives on a 1-axis mesh: ``(plane,
+    vec, replicated)`` layouts, (n_cap, k) planes row-split, (n_cap,)
+    per-vertex vectors split alongside them, everything else (graph,
+    landmarks, scalars, query batches) replicated.
+    ``core.distributed.vertex_index_shardings`` assembles the
+    DBLIndex-shaped tree from them."""
+    ax = _one_axis(mesh)
+    return (Layout(mesh, P(ax, None)), Layout(mesh, P(ax)),
+            Layout(mesh, P()))
+
+
+def reach_halo_shardings(mesh) -> tuple:
+    """The sparse halo's accounting arrays (``core.halo``) on a 1-axis
+    mesh: ``(pair, replicated)`` layouts, the (d, d) per-(sender,
+    receiver) count matrices row-split (each shard owns its sender row),
+    the fixpoint scalars replicated."""
+    ax = _one_axis(mesh)
+    return Layout(mesh, P(ax, None)), Layout(mesh, P())
 
 
 # ------------------------------------------------------- GNN and recsys

@@ -44,12 +44,20 @@ pruned BFS.  The engine keeps that pipeline on the device:
   residue through ``_coal_phases[bucket]``: the live methods, or
   dispatchers that route exact input shapes and branches to the loaded
   programs.  The BFS loop stays on the host between rounds.  Answers are
-  bitwise the same either way.
+  bitwise the same either way;
+- **dispatch shapes**: ``dispatch_shape_counts()`` counts the distinct
+  input signatures the label phase and the coalesced residue (one entry a
+  chunk bucket's signature) were dispatched with: what a jit cache, a
+  CUDA graph pool or an export cache must hold.  ``warmup(index,
+  batch_sizes, bfs_buckets)`` dispatches each of them once with dead
+  lanes and loads the kernels, so the first served round builds nothing.
 
-**Query-axis serving** (``mesh=``, a ``distributed.query_mesh``; SPMD
-over ``torch.distributed``, every rank holding the whole replicated index
-and making the same calls): the label phase splits each batch's lanes
-into one contiguous block a rank, runs the verdict kernel (grid or
+**Query-axis serving** (``mesh=``, a ``distributed.query_mesh`` or a
+launch mesh, ``launch.mesh.make_mesh_compat``, whose axes are flattened;
+SPMD over ``torch.distributed``, every rank holding the whole replicated
+index, ``launch.sharding.reach_place_index``, and making the same calls):
+the label phase splits each batch's lanes into one contiguous block a
+rank, runs the verdict kernel (grid or
 streamed, as the replicated engine would) on its block and all-gathers
 the (Q,) verdicts (``distributed.fan_out``); the residue, inserts,
 deletes and rebuilds run replicated on every rank, with the admit kernels
@@ -98,6 +106,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.bfs_prune.ops import admit_plane
 from repro_torch.kernels.dbl_query.ops import (StreamILFallbackWarning,
                                                verdicts_device)
+from repro_torch.launch.mesh import Mesh
 
 #: supported consistency modes (``"latest-snapshot"`` is an alias)
 CONSISTENCY_MODES = ("as-of-submit", "latest")
@@ -242,11 +251,14 @@ class QueryEngine:
                 "mesh (query-axis fan-out, labels replicated) and "
                 "vertex_mesh (vertex-sharded labels) are mutually "
                 "exclusive engine layouts")
+        if isinstance(mesh, Mesh):
+            mesh = D.flat_query_mesh(mesh)
         if mesh is not None and not (isinstance(mesh, D.VertexMesh)
                                      and mesh.axis == D.QUERY_AXIS):
             raise TypeError(
                 "mesh= takes a query mesh, "
-                "repro_torch.core.distributed.query_mesh(), not "
+                "repro_torch.core.distributed.query_mesh(), or a launch "
+                "mesh, not "
                 f"{type(mesh).__name__}"
                 + (" over the vertex axis (pass it as vertex_mesh=)"
                    if isinstance(mesh, D.VertexMesh) else ""))
@@ -342,6 +354,8 @@ class QueryEngine:
         # chunk bucket to its (prologue, round) pair
         self._label_phase = self.label_phase
         self._coal_phases: dict = {}
+        # the distinct dispatch signatures of each query phase
+        self._shapes: dict = {"label": set(), "bfs": set()}
         # (graph, the graph as the residue phases take it), for the last
         # graph a dispatch read (_phase_graph)
         self._phase_g = None
@@ -373,6 +387,8 @@ class QueryEngine:
         places a replicated index on its mesh, takes a shard of its mesh
         as it is, and plans the bound edges (or adopts the plan a
         ``rebuild()`` made for exactly them)."""
+        if idx is not None and idx.scheme is not None:
+            raise self._scheme_index()
         if idx is not None and self.vertex_mesh is not None:
             idx = self._place(idx)
         elif idx is not None and idx.layout.sharded:
@@ -412,6 +428,12 @@ class QueryEngine:
             "a vertex-sharded index is served by a vertex-sharded engine: "
             "QueryEngine(index, vertex_mesh=mesh)")
 
+    @staticmethod
+    def _scheme_index() -> ValueError:
+        return ValueError(
+            "an index of the auto-partitioned scheme is served whole: "
+            "repro_torch.launch.sharding.reach_place_index(index, mesh)")
+
     def _place(self, idx: DBLIndex) -> DBLIndex:
         """``idx`` as a shard of this engine's mesh."""
         want = PL.vertex_layout(self.vertex_mesh)
@@ -435,6 +457,8 @@ class QueryEngine:
             raise ValueError(
                 "vertex-sharded engines serve only their bound index; "
                 "bind the snapshot first (engine.index = idx)")
+        if index.scheme is not None:
+            raise self._scheme_index()
         if self.vertex_mesh is None and index.layout.sharded:
             raise self._unsharded_engine()
         if index.device != self.device:
@@ -529,7 +553,7 @@ class QueryEngine:
                                                            mesh=mesh))
 
     def coalesced_phase(self, index: DBLIndex, uu, vv, m_cut,
-                        d_stale: bool) -> torch.Tensor:
+                        d_stale: bool, min_rounds: int = 0) -> torch.Tensor:
         """One chunk of an epoch-coalesced residue: re-check the lanes
         against the newest labels (verdict 0 → False, surviving +1 → True;
         stale-lane positives were downgraded by the cutoff), then run the
@@ -537,9 +561,12 @@ class QueryEngine:
         carry ``u = n_cap`` and never extend the BFS.  An "il" index adds
         its prune to the re-check and, on clean labels, to the admit
         planes (the sharded residue skips it there: the prune is sound,
-        so the hits are the same)."""
+        so the hits are the same).  The replicated residue runs at least
+        ``min_rounds`` BFS rounds (``warmup``: a round on dead lanes
+        changes nothing)."""
         g, p, il = index.graph, index.packed, index.il
         n_cap = index.n_cap
+        self._shapes["bfs"].add(self._bfs_shape(g, p, il, uu))
         if self.vertex_mesh is not None:
             live_lane = uu < n_cap
             uu_safe = uu.clamp(max=n_cap - 1)
@@ -559,7 +586,7 @@ class QueryEngine:
         known, carry, consts, go = prologue(self._phase_graph(g), p, il, uu,
                                             vv, m_cut, d_stale)
         it = 0
-        while it < self.max_iters and bool(go):
+        while it < self.max_iters and (it < min_rounds or bool(go)):
             carry, go = round_(carry, consts)
             it += 1
         return known | Q.bfs_hits(carry, c, self.frontier_dtype)
@@ -627,6 +654,23 @@ class QueryEngine:
     def _round_key(carry, consts):
         return (carry[0].shape, consts[1].shape, consts[4] is None)
 
+    # the dispatch shapes (``dispatch_shape_counts``): the input signature
+    # of a label phase and of a chunk bucket's residue, as the reference's
+    # jit caches key them.  The dirty flag is a traced input there (one
+    # executable serves both states), so it is not part of the signature;
+    # a vertex-sharded residue takes the plan's padded routing tables as
+    # inputs, so their extents are.
+    @staticmethod
+    def _label_shape(p, u, il):
+        return (u.shape[0], p.dl_in.shape, p.bl_in.shape,
+                None if il is None else il[0].shape)
+
+    def _bfs_shape(self, g, p, il, uu):
+        plan = None if self.vertex_mesh is None else (
+            self._plan.fwd.e_recv.shape, self._plan.fwd.h_send.shape)
+        return (uu.shape[0], g.src.shape, p.dl_in.shape, p.bl_in.shape,
+                None if il is None else il[0].shape, plan)
+
     def insert_impl(self, idx: DBLIndex, ns, nd) -> tuple[DBLIndex, bool]:
         """Alg 3 on the bound index: the fused DL/BL update, then the "il"
         hook over the extended graph.  Returns (next index, whether a
@@ -687,6 +731,8 @@ class QueryEngine:
         current epoch and edge count and survive later ``insert()``s."""
         self._check_device(index)
         uj, vj, q = self._pad_queries(u, v)
+        self._shapes["label"].add(self._label_shape(index.packed, uj,
+                                                    index.il))
         answers, order, u_c, v_c, n_unknown, counts = self._label_phase(
             index.packed, uj, vj, index.is_dirty, index.il)
         if self._index is not None and index is self._index:
@@ -1029,6 +1075,58 @@ class QueryEngine:
             _, carry, consts, _ = self.coalesced_prologue(*args)
             entry(f"bfs-round-{c}", round_, self.coalesced_round,
                   (carry, consts))
+        return self
+
+    # ------------------------------------------------------ introspection
+    def dispatch_shape_counts(self) -> dict:
+        """Distinct input signatures by phase: ``"label"`` (batch size
+        padded to a multiple of ``bfs_chunk``, the plane shapes, the
+        interval planes) and ``"bfs"`` (one a chunk bucket's signature,
+        its prologue and its rounds together), as the reference counts
+        its jit cache entries.  The reference pads a batch to a multiple
+        of ``lcm(q_block, bfs_chunk)``, so on a stream of many batch
+        sizes the port can count more label signatures."""
+        return {k: len(v) for k, v in self._shapes.items()}
+
+    def dispatch_shapes(self) -> int:
+        """Number of distinct input signatures behind query dispatches."""
+        c = self.dispatch_shape_counts()
+        return c["label"] + c["bfs"]
+
+    def _kernel_libraries(self, index: DBLIndex) -> list:
+        """The kernel libraries this engine's phases launch on ``index``."""
+        if self.backend != "cuda":
+            return []
+        names = ["dbl_query_streamed"
+                 if self.streaming and index.il is None else "dbl_query"]
+        if self.bfs_kernel:
+            names.append("bfs_prune_streamed" if self.streaming
+                         else "bfs_prune")
+        return names
+
+    def warmup(self, index: DBLIndex, batch_sizes=(1,),
+               bfs_buckets=None) -> "QueryEngine":
+        """Build and load the kernels the phases launch
+        (``kernels._build``), then dispatch the label phase for each batch
+        size and the coalesced residue for each chunk bucket (default the
+        ``bfs_chunk`` one) with dead lanes, clean, as serving dispatches
+        them, with one BFS round, which dead lanes would skip: the
+        reference compiles the loop's body with its phase, and here a
+        live lane's first round would pay the round's first launches.
+        On a mesh every rank calls it."""
+        from repro_torch.kernels import _build
+        self._check_device(index)
+        for name in self._kernel_libraries(index):
+            _build.load(name)
+        for q in batch_sizes:
+            self.submit(index, np.zeros(q, np.int32), np.zeros(q, np.int32))
+        i32 = dict(dtype=torch.int32, device=index.device)
+        for chunk in (bfs_buckets or (self.bfs_chunk,)):
+            c = self._bucket_for(chunk)
+            self.coalesced_phase(index, torch.full((c,), index.n_cap, **i32),
+                                 torch.zeros(c, **i32),
+                                 torch.full((c,), Q.FRESH_CUT, **i32), False,
+                                 min_rounds=1)
         return self
 
     def check_saturation(self, *, warn: bool = True) -> int:

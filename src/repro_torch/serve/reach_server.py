@@ -236,11 +236,12 @@ class ReachabilityServer:
             self.rebuild()
 
     def engine_stats(self) -> dict:
-        """The engine's counters and configuration, with the halo
-        telemetry (all zero unless vertex-sharded) under ``halo`` and its
-        headline three at the top level, read fresh, and with an AOT cache
-        its hits, misses and stores under ``aot``."""
+        """The engine's counters, dispatch shapes and configuration, with
+        the halo telemetry (all zero unless vertex-sharded) under ``halo``
+        and its headline three at the top level, read fresh, and with an
+        AOT cache its hits, misses and stores under ``aot``."""
         d = self.engine.stats.as_dict()
+        d["dispatch_shapes"] = self.engine.dispatch_shapes()
         d["backend"] = self.engine.backend
         d["device"] = str(self.engine.device)
         d["epoch"] = self.engine.epoch

@@ -238,3 +238,51 @@ def test_insert_saturation_reports_max_iters_plus_one():
     assert [int(x) for x in np.asarray(outj[5])] == out[5]
     for a, b in zip(outj[1:5], out[1:5]):
         _eq(a, b)
+
+
+@pytest.mark.parametrize("name", ["Monoid", "PlaneRepr", "HaloMode"])
+def test_propagate_literal_aliases_match(name):
+    import typing
+    from repro.core import propagate as JP
+    from repro_torch.core import propagate as TP
+    assert typing.get_args(getattr(TP, name)) == \
+        typing.get_args(getattr(JP, name))
+    assert typing.get_origin(getattr(TP, name)) is typing.Literal
+
+
+def test_plane_store_k_prime_matches():
+    from repro.core import planes as JPL
+    from repro_torch.core import planes as TPL
+    lm = np.array([0, 3, 5], np.int32)
+    src_m = np.zeros(16, bool)
+    src_m[[1, 2]] = True
+    j = JPL.PlaneStore.seeds(jnp.asarray(lm), jnp.asarray(src_m),
+                             jnp.asarray(src_m), n_cap=16, k=3, k_prime=5)
+    t = TPL.PlaneStore.seeds(torch.from_numpy(lm), torch.from_numpy(src_m),
+                             torch.from_numpy(src_m), n_cap=16, k=3,
+                             k_prime=5)
+    assert t.k_prime == j.k_prime == 5 and t.k == j.k == 3
+
+
+def test_layout_of_replicated_and_vertex_sharded():
+    """What the port records: a replicated index and a bare plane are
+    ``REPLICATED`` (the reference's answer for an unsharded plane); a
+    vertex shard is its layout, with the reference's kind, axis and shard
+    count; a one-shard layout is ``REPLICATED``, as the reference's is."""
+    from repro.core import planes as JPL
+    from repro_torch.core import DBLIndex
+    from repro_torch.core import distributed as TD
+    from repro_torch.core import planes as TPL
+    src, dst = JGen.power_law(64, 300, seed=4)
+    idx = DBLIndex.build(TG.make_graph(src, dst, 64, device=CPU), n_cap=64,
+                         k=8, k_prime=8, device=CPU)
+    assert TPL.layout_of(idx) == TPL.layout_of(idx.dl_in) == TPL.REPLICATED
+    assert JPL.layout_of(jnp.zeros((64, 8), bool)) == JPL.REPLICATED
+    for shards in (1, 4):
+        mesh = TD.VertexMesh(None, shards - 1, shards, torch.device(CPU))
+        lay = TPL.layout_of(TD.place_vertex_sharded(idx, mesh))
+        if shards == 1:
+            assert lay == TPL.REPLICATED
+        else:
+            assert (lay.kind, lay.axis, lay.shards, lay.rank) == \
+                ("vertex_sharded", "vertex", 4, 3)

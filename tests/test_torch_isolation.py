@@ -111,3 +111,78 @@ def test_default_device_raises_without_cuda(monkeypatch):
                if isinstance(t, torch.Tensor))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_main(["--arch", "tinyllama-1.1b", "--smoke", "--steps", "1"])
+
+
+# ------------------------------------------------- public names
+REF = ROOT / "src" / "repro"
+PORT = ROOT / "src" / "repro_torch"
+#: modules of the JAX package with no counterpart, by design
+#: (ROADMAP.md §1): the CUDA kernels mask their own ragged edge, and each
+#: op wrapper's plain PyTorch version is the kernel's reference
+NO_COUNTERPART = {"kernels/_pad.py", "kernels/bfs_prune/ref.py",
+                  "kernels/dbl_query/ref.py"}
+#: class members with no counterpart, by design: JAX's pytree protocol,
+#: and a jit lowering that ``torch.export`` has no counterpart of
+NO_MEMBER = {("core/planes.py", "PlaneStore", "tree_flatten"),
+             ("core/planes.py", "PlaneStore", "tree_unflatten"),
+             ("serve/aot.py", "ShapeDispatcher", "lower")}
+
+
+def _public(path: Path):
+    """(names, {class: methods}) a module defines at its top level, and
+    for a package's ``__init__`` the names it imports as well."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names, classes = set(), {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        if isinstance(node, ast.ClassDef):
+            classes[node.name] = {b.name for b in node.body
+                                  if isinstance(b, ast.FunctionDef)}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, ast.ImportFrom) and node.level and \
+                path.name == "__init__.py":
+            names |= {a.asname or a.name for a in node.names}
+    pub = {n for n in names if not n.startswith("_")}
+    return pub, {c: {m for m in ms if not m.startswith("_")}
+                 for c, ms in classes.items() if not c.startswith("_")}
+
+
+def test_public_names_have_counterparts():
+    """Every public name of every JAX package module has a counterpart in
+    the port's module of the same path, apart from ROADMAP.md §1's
+    list.  The models are ``nn.Module``s: a reference function over a
+    parameter tree (``init_params``, ``apply``, ``loss_fn``, ...) is the
+    constructor or a method of the same name of a module class there (or
+    of ``models/gnn/common.py``'s ``MLP`` and ``Potential``)."""
+    _, common = _public(PORT / "models" / "gnn" / "common.py")
+    missing = []
+    for ref in sorted(REF.rglob("*.py")):
+        rel = ref.relative_to(REF).as_posix()
+        port = PORT / rel
+        if rel in NO_COUNTERPART:
+            assert not port.exists(), rel
+            continue
+        if not port.exists():
+            missing.append(rel)
+            continue
+        r_names, r_classes = _public(ref)
+        p_names, p_classes = _public(port)
+        methods = set().union(*p_classes.values(), *common.values()) \
+            if rel.startswith("models/") else set()
+        for name in sorted(r_names - p_names):
+            if rel.startswith("models/") and (
+                    name in methods or name == "init_params"
+                    or (name in ("mlp_init", "mlp_apply")
+                        and "MLP" in common)):
+                continue
+            missing.append(f"{rel}: {name}")
+        for cls, members in r_classes.items():
+            for name in sorted(members - p_classes.get(cls, set())):
+                if (rel, cls, name) not in NO_MEMBER:
+                    missing.append(f"{rel}: {cls}.{name}")
+    assert not missing, missing

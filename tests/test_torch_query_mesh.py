@@ -354,8 +354,8 @@ def test_query_mesh_needs_a_process_group():
 def test_replicated_stats_keys_equal_reference():
     """The replicated engine's ``EngineStats`` and the server's
     ``engine_stats()`` after the same stream: the JAX package's keys and
-    values, apart from the server's ``dispatch_shapes`` (no jit cache
-    here), the port's ``device`` and the backend's name."""
+    values, ``dispatch_shapes`` included, apart from the port's
+    ``device`` and the backend's name."""
     from repro.core import DBLIndex as JIndex
     from repro.core import graph as JG
     from repro.serve.engine import QueryEngine as JEngine
@@ -383,7 +383,7 @@ def test_replicated_stats_keys_equal_reference():
     assert t_stats == j_stats
     for k in ("halo_bytes", "halo_rounds", "quiet_pair_rounds"):
         assert t_stats[k] == 0
-    assert set(t_srv) - {"device"} == set(j_srv) - {"dispatch_shapes"}
+    assert set(t_srv) - {"device"} == set(j_srv)
     for k in set(t_srv) - {"device", "backend"}:
         assert t_srv[k] == j_srv[k], k
 
