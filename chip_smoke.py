@@ -699,12 +699,15 @@ def kernel_timings(dev):
     """Kernel, plain and bound times at the main paths' shapes over the
     LJ preset's 60 000 vertices with k = k' = 64 (W = 2): the label
     phase's padded verdict batch and the coalesced phase's 64-lane admit
-    plane, the grid kernels with clean labels (edge-count cutoff only),
-    the streamed kernels with dirty labels (edge-count and tombstone
-    cutoffs).  Each kernel is timed through its custom op on the
-    pre-combined freshness rows the wrappers hand it, its plain version on
-    the cutoffs.  Each kernel's output must equal its plain version's, bitwise, on
-    the timed inputs.  Each shape also gets its launch floor: ``zero_`` of
+    plane, the grid kernels with clean labels (the engine passes the
+    edge-count cutoff and the tombstone cutoff of its dirty gate, two
+    freshness rows, in either state; ``verdicts_kernel_ncut1`` times the
+    grid verdict kernel on the edge-count row alone, as it was passed
+    before the gate), the streamed kernels with dirty labels.  Each
+    kernel is timed through its custom op on the pre-combined freshness
+    rows the wrappers hand it, its plain version on the cutoffs.  Each
+    kernel's output must equal its plain version's, bitwise, on the timed
+    inputs.  Each shape also gets its launch floor: ``zero_`` of
     its int8 output ((Q,) verdicts, (n_cap, Qc) admit plane), timed the
     same way."""
     import torch
@@ -728,21 +731,28 @@ def kernel_timings(dev):
     cuts = dict(m_cut=torch.full((q,), FRESH_CUT, dtype=torch.int32,
                                  device=dev), m_total=0)
     # each distinct vertex's four label rows are read once, whether it is
-    # a u, a v or both; per lane u, v and m_cut are read, a byte written
+    # a u, a v or both; per lane u, v and each freshness row are read, a
+    # byte written
     rows = int(torch.unique(torch.cat([u, v])).numel())
-    nbytes = rows * 4 * w * 4 + q * (4 + 4 + 4 + 1)
     # per lane: one logic op per word for Lemma 1 and each of the three
     # theorem intersections (4*Wd), one per word for each BL containment
     # test (2*Wb), and the gates and the select
     ops = q * (4 * w + 2 * w + 8)
     # the kernels take the cutoffs as freshness rows (the custom ops'
-    # operands); the plain versions the cutoffs themselves
-    rows1 = freshness_rows(**cuts)
-    out["verdicts_kernel"] = timed(
-        "verdicts_kernel", f"n_cap={n} W=2 Q={q} int8 out, m_cut",
-        lambda: verdicts_op(*p, u, v, rows1, None, None, True),
-        lambda: verdicts_plain(*p, u, v, **cuts, out_dtype=torch.int8),
-        nbytes, ops, floor_q=q)
+    # operands); the plain versions the cutoffs themselves.  The label
+    # phase on clean labels: the tombstone row all ones (the gate False)
+    gated = dict(cuts, d_cut=torch.ones(q, dtype=torch.int32, device=dev),
+                 d_total=1)
+    for name, kw, ncut in (("verdicts_kernel", gated, 2),
+                           ("verdicts_kernel_ncut1", cuts, 1)):
+        rows_k = freshness_rows(**kw)
+        out[name] = timed(
+            name, f"n_cap={n} W=2 Q={q} int8 out, ncut={ncut}",
+            lambda rows_k=rows_k: verdicts_op(*p, u, v, rows_k, None, None,
+                                              True),
+            lambda kw=kw: verdicts_plain(*p, u, v, **kw,
+                                         out_dtype=torch.int8),
+            rows * 4 * w * 4 + q * (4 + 4 + ncut * 4 + 1), ops, floor_q=q)
 
     q = CHUNK_QS[-1]
     u, v = ids(q), ids(q)
@@ -2541,8 +2551,12 @@ def aot_child(argv):
     one then times a round through the loaded programs against a live
     engine on a second copy of the index (loaded, live, live, loaded),
     profiles a loaded round (every dispatch must reach a loaded program),
-    inserts, deletes and answers the second round; the answers go to
-    ``<run>_answers.npz``, one report a run to a line of stdout."""
+    inserts, deletes and answers the second round on the dirty labels
+    (again through loaded programs only: the dirty flag is an input of
+    the programs), then times that dirty round against the live engine
+    after the same insert and delete, in turns (loaded, live, live,
+    loaded); the answers go to ``<run>_answers.npz``, one report a run to
+    a line of stdout."""
     import torch
     from repro_torch.serve.aot import ShapeDispatcher
     work, t0, cold, dev = (Path(argv[0]), float(argv[1]), argv[2] == "1",
@@ -2599,26 +2613,47 @@ def _aot_child_run(work, run, cold, dev, data, t0, torch, ShapeDispatcher):
     dispatchers = [eng._label_phase] + [d for pair in eng._coal_phases
                                         .values() for d in pair]
     assert all(isinstance(d, ShapeDispatcher) for d in dispatchers)
-    live_before = sum(d.live_calls for d in dispatchers)
     # the CPU (a rehearsal) has no kernels to profile
     profile = _device_profile if dev == "cuda" else \
         (lambda fn: (fn(), 0, {}))
     _, _, per_kernel = loaded(lambda: profile(
         lambda: eng.query(data["u1"], data["v1"])))
-    if sum(d.live_calls for d in dispatchers) != live_before:
+    if sum(d.live_calls for d in dispatchers):
         raise AssertionError(f"aot {run}: a clean round ran a live phase")
     profiled = {}
     for k, (_, calls) in per_kernel.items():
         name = _kernel_of(k)
         if name:
             profiled[name] = profiled.get(name, 0) + calls
-    eng.insert(data["ins_s"], data["ins_d"])
-    eng.delete(data["del_s"], data["del_d"])
-    ans2, dirty_ms = _timed_round(eng, data["u2"], data["v2"])
+    for e in (eng, live):
+        e.insert(data["ins_s"], data["ins_d"])
+        e.delete(data["del_s"], data["del_d"])
+    before = _launch_counts()
+    ans2, dirty_ms = loaded(lambda: _timed_round(eng, data["u2"],
+                                                 data["v2"]))
+    dirty_launches = {k: c - before[k] for k, c in _launch_counts().items()}
+    if sum(d.live_calls for d in dispatchers):
+        raise AssertionError(f"aot {run}: a dirty round ran a live phase")
+    _timed_round(live, data["u2"], data["v2"])    # the live dirty warm-up
+    dirty = {"loaded": [], "live": []}
+    for name, e in (("loaded", eng), ("live", live), ("live", live),
+                    ("loaded", eng)):
+        run_e = functools.partial(_timed_round, e, data["u2"], data["v2"])
+        ans, ms = loaded(run_e) if name == "loaded" else run_e()
+        if not np.array_equal(ans, ans2):
+            raise AssertionError(f"aot {run}: a {name} dirty round differs "
+                                 "from the first loaded dirty round")
+        dirty[name].append(ms)
+    if sum(d.live_calls for d in dispatchers):
+        raise AssertionError(f"aot {run}: a dirty round ran a live phase")
     np.savez(work / f"{run}_answers.npz", ans1=ans1, ans2=ans2)
     out.update(loaded_round_ms=rounds["loaded"], live_round_ms=rounds["live"],
-               dirty_round_ms=dirty_ms, profiled_kernels=profiled,
-               loaded_launches=launches,
+               dirty_round_ms=dirty_ms,
+               loaded_dirty_round_ms=dirty["loaded"],
+               live_dirty_round_ms=dirty["live"],
+               dirty_launches=dirty_launches,
+               live_calls=sum(d.live_calls for d in dispatchers),
+               profiled_kernels=profiled, loaded_launches=launches,
                loaded_calls=sum(d.loaded_calls for d in dispatchers))
     return out
 
@@ -2651,10 +2686,11 @@ def warmup_child(argv):
     <device>``: load the saved index, put ``QueryEngine(bfs_chunk=64,
     max_iters=64, bfs_kernel=True)`` over it, ``warmup`` it (the round's
     batch and every chunk bucket) when ``warm`` is 1, then serve a round,
-    a second round, a delete of the saved pairs, the delta rebuild and a
-    round on the rebuilt index.  ``dispatch_shapes()`` is read after the
-    warmup and after each of those; the answers go to
-    ``<work>/answers<warm>.npz`` and the report to stdout."""
+    a second round, a delete of the saved pairs, two rounds on the dirty
+    labels, the delta rebuild and a round on the rebuilt index.
+    ``dispatch_shapes()`` is read after the warmup and after each of
+    those; the answers go to ``<work>/answers<warm>.npz`` and the report
+    to stdout."""
     import torch
     from repro_torch.serve.engine import QueryEngine
     work, warm, dev = Path(argv[0]), argv[1] == "1", argv[2]
@@ -2677,13 +2713,21 @@ def warmup_child(argv):
     out["shapes"]["first_round"] = eng.dispatch_shape_counts()
     _, out["second_round_ms"] = _timed_round(eng, data["u1"], data["v1"])
     eng.delete(data["del_s"], data["del_d"])
+    ans2, out["first_dirty_round_ms"] = _timed_round(eng, data["u2"],
+                                                     data["v2"])
+    out["shapes"]["dirty_round"] = eng.dispatch_shape_counts()
+    again, out["second_dirty_round_ms"] = _timed_round(eng, data["u2"],
+                                                       data["v2"])
+    if not np.array_equal(again, ans2):
+        raise AssertionError("two dirty rounds of the same queries differ")
     eng.rebuild(mode="delta")
     out["rebuild"] = eng.last_rebuild_info["mode"]
     ans3, out["rebuilt_round_ms"] = _timed_round(eng, data["u3"],
                                                  data["v3"])
     out["shapes"]["delta_rebuild"] = eng.dispatch_shape_counts()
     out["launches"] = {k: c - before[k] for k, c in _launch_counts().items()}
-    np.savez(work / f"answers{int(warm)}.npz", ans1=ans1, ans3=ans3)
+    np.savez(work / f"answers{int(warm)}.npz", ans1=ans1, ans2=ans2,
+             ans3=ans3)
     print(json.dumps(out), flush=True)
 
 
@@ -2692,10 +2736,12 @@ def warmup_phase(dev, card):
     fresh child serves the same stream with a warmup (``warm``) and one
     without (``cold``), both started after the kernels are built, so a
     cold first round pays the libraries' loads and every first dispatch
-    itself.  The warm child's dispatch shapes after its warmup, its first
-    round and the delta rebuild must be equal; both children's answers
-    must equal this process's engine's.  Returns the children's
-    launches."""
+    itself; the stream has two rounds on dirty labels, after a delete and
+    before the delta rebuild, which the (clean) warmup covers too.  The
+    warm child's dispatch shapes after its warmup, its first round, its
+    first dirty round and the delta rebuild must be equal; both
+    children's answers must equal this process's engine's.  Returns the
+    children's launches."""
     import os
     import torch
     from repro_torch.core import DBLIndex, make_graph
@@ -2716,6 +2762,8 @@ def warmup_phase(dev, card):
                 v3=rng.integers(0, n, QUERIES).astype(np.int32),
                 del_s=(pick // n).astype(np.int32),
                 del_d=(pick % n).astype(np.int32))
+    data.update(u2=rng.integers(0, n, QUERIES).astype(np.int32),
+                v2=rng.integers(0, n, QUERIES).astype(np.int32))
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="warmup_", dir=build_dir))
@@ -2726,6 +2774,7 @@ def warmup_phase(dev, card):
                           bfs_kernel=True)
         want1 = eng.query(data["u1"], data["v1"])
         eng.delete(data["del_s"], data["del_d"])
+        want2 = eng.query(data["u2"], data["v2"])
         eng.rebuild(mode="delta")
         want3 = eng.query(data["u3"], data["v3"])
         env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -2744,6 +2793,7 @@ def warmup_phase(dev, card):
             rep = json.loads(proc.stdout.strip().splitlines()[-1])
             got = np.load(work / f"answers{int(warm)}.npz")
             if not (np.array_equal(got["ans1"], want1)
+                    and np.array_equal(got["ans2"], want2)
                     and np.array_equal(got["ans3"], want3)):
                 raise AssertionError(f"the warmup child (warm={warm}) "
                                      "answered otherwise than this "
@@ -2761,6 +2811,10 @@ def warmup_phase(dev, card):
                              for k, r in reports.items()},
              second_round_ms={k: r["second_round_ms"]
                               for k, r in reports.items()},
+             first_dirty_round_ms={k: r["first_dirty_round_ms"]
+                                   for k, r in reports.items()},
+             second_dirty_round_ms={k: r["second_dirty_round_ms"]
+                                    for k, r in reports.items()},
              rebuilt_round_ms={k: r["rebuilt_round_ms"]
                                for k, r in reports.items()},
              rebuild=reports["warm"]["rebuild"],
@@ -2779,9 +2833,11 @@ def aot_phase(dev, card):
     (``aot_child``), and a second child starts the first engine from an
     empty cache.  The child's answers must equal a live engine's in this
     process bitwise, and the first round's residue lanes and 64 random
-    lanes of each round a host BFS over that round's edges.  In the warm child each profiled loaded
-    round must launch both kernels of its engine.  Returns the kernels'
-    launches from loaded programs."""
+    lanes of each round a host BFS over that round's edges.  In the warm
+    child each profiled loaded round, and the first dirty round, must
+    launch both kernels of its engine, and no dispatch, clean or dirty,
+    may run a live phase.  Returns the kernels' launches from loaded
+    programs."""
     import torch
     from repro_torch.core import DBLIndex, make_graph
     from repro_torch.graphs.generators import table2_graph
@@ -2886,6 +2942,13 @@ def aot_phase(dev, card):
                         w["loaded_launches"][k] <= 0:
                     raise AssertionError(f"aot {run}: {k} not launched "
                                          "from a loaded program")
+                if w["dirty_launches"][k] <= 0:
+                    raise AssertionError(f"aot {run}: {k} not launched "
+                                         "by the dirty round's loaded "
+                                         "programs")
+            if w["live_calls"]:
+                raise AssertionError(f"aot {run}: {w['live_calls']} "
+                                     "dispatches ran a live phase")
             for k, c in w["loaded_launches"].items():
                 launches[k] += c
             emit("aot_child", run=run, card=card, residue_lanes=residue.size,

@@ -213,14 +213,18 @@ def admit_rows(bl_in: torch.Tensor, bl_out: torch.Tensor,
 
 def _admit_plane(p: PackedLabels, u: torch.Tensor, v: torch.Tensor,
                  n_cap: int, dl_on: torch.Tensor | None = None,
-                 il=None) -> torch.Tensor:
+                 il=None, il_on: torch.Tensor | None = None) -> torch.Tensor:
     """(n_cap, Qc) bool: vertices x admissible in query q's BFS
     (:func:`admit_rows` over every row).  ``il`` = (il_in, il_out) adds
-    ¬IL_Violate(x, v_q)."""
+    ¬IL_Violate(x, v_q); ``il_on`` (0-d or (Qc,) bool) gates it: the
+    prune is not deletion-sound, so a dirty dispatch turns it off."""
     admit = admit_rows(p.bl_in, p.bl_out, p.dl_in, rows(p.dl_out, u),
                        rows(p.bl_in, v), rows(p.bl_out, v), dl_on)
     if il is not None:
-        admit = admit & ~il_violation_plane(il, v)
+        bad = il_violation_plane(il, v)
+        if il_on is not None:
+            bad = bad & il_on
+        admit = admit & ~bad
     return admit
 
 
@@ -260,8 +264,8 @@ def relax(frontier: torch.Tensor, tails: torch.Tensor, heads: torch.Tensor,
 def bfs_prologue(g: Graph, p: PackedLabels | None, u: torch.Tensor,
                  v: torch.Tensor, admit: torch.Tensor | None = None,
                  m_cut: torch.Tensor | None = None,
-                 dl_clean: bool | None = None, il=None, *, n_cap: int,
-                 frontier_dtype: str = "int8"):
+                 dl_clean: bool | torch.Tensor | None = None, il=None, *,
+                 n_cap: int, frontier_dtype: str = "int8"):
     """Everything :func:`pruned_bfs` does before its first round, as
     ``(carry, consts, go)``: the loop-carried tensors (frontier, visited,
     hit; words on the packed path), the loop-invariant ones (the admit
@@ -269,19 +273,24 @@ def bfs_prologue(g: Graph, p: PackedLabels | None, u: torch.Tensor,
     and targets) and the 0-d bool that the host reads to decide on the
     first round.  Tensors only, with ``g.m`` and ``g.del_epoch`` read as
     ints or 0-d tensors, and no host read, so that ``torch.export`` can
-    take it whole.  ``consts[1]`` is the (m_cap,) edge tails and
-    ``consts[4]`` ``m_cut`` on both paths."""
+    take it whole.  ``dl_clean`` (a bool or a 0-d bool tensor, as the
+    engine's phases pass it) gates the DL prune and the interval prune
+    with tensor ops, never read on the host.  ``consts[1]`` is the
+    (m_cap,) edge tails and ``consts[4]`` ``m_cut`` on both paths."""
     dev = u.device
     qc = u.shape[0]
     live = edge_mask(g)
-    clean = True if dl_clean is None else bool(dl_clean)
-    if m_cut is None:
-        dl_on = None if dl_clean is None else \
-            torch.full((qc,), clean, dtype=torch.bool, device=dev)
-    else:
-        dl_on = (m_cut >= g.m) & clean
     if admit is None:
-        admit = _admit_plane(p, u, v, n_cap, dl_on, il if clean else None)
+        clean = dl_clean
+        if clean is not None and not isinstance(clean, torch.Tensor):
+            clean = torch.full((), bool(clean), dtype=torch.bool, device=dev)
+        if m_cut is None:
+            dl_on = None if clean is None else clean.expand(qc)
+        else:
+            dl_on = m_cut >= g.m
+            if clean is not None:
+                dl_on = dl_on & clean
+        admit = _admit_plane(p, u, v, n_cap, dl_on, il, clean)
     elif admit.dtype != torch.bool:
         admit = admit > 0
     ids = torch.arange(n_cap, device=dev)
@@ -346,8 +355,8 @@ def pruned_bfs(g: Graph, p: PackedLabels | None, u: torch.Tensor,
                v: torch.Tensor,
                admit: torch.Tensor | None = None,
                m_cut: torch.Tensor | None = None,
-               dl_clean: bool | None = None, il=None, *, n_cap: int,
-               max_iters: int = 256, frontier_dtype: str = "int8"
+               dl_clean: bool | torch.Tensor | None = None, il=None, *,
+               n_cap: int, max_iters: int = 256, frontier_dtype: str = "int8"
                ) -> torch.Tensor:
     """(Qc,) bool: resolve unknown queries by label-pruned BFS lanes.
 

@@ -48,7 +48,12 @@ def select_landmarks(g: Graph, *, n_cap: int, k: int,
                      method: str = "product") -> torch.Tensor:
     """Top-k vertices by centrality -> (k,) int32 landmark ids.  A stable
     descending sort puts the lower id first on ties, as ``lax.top_k`` does;
-    ``torch.topk`` promises no order, and the order fixes the DL lanes."""
+    ``torch.topk`` promises no order, and the order fixes the DL lanes.
+    ``k > n_cap`` raises ``ValueError``, as ``lax.top_k`` does."""
+    if k > n_cap:
+        raise ValueError(f"k argument to top_k must be no larger than size "
+                         f"along axis; got k={k} with shape=[{n_cap}] and "
+                         "axis=0")
     score = centrality(g, n_cap, method)
     order = torch.sort(score, descending=True, stable=True).indices
     return order[:k].to(torch.int32)

@@ -8,7 +8,8 @@ of its local shape's bytes under its layout.  Nothing is compiled, so the
 reference's compiled ``temp_bytes``, ``cost`` and ``hlo`` have no
 counterpart here and are not recorded; ``peak_bytes_per_device`` is the
 argument bytes, held against one NVIDIA H100 80GB's capacity
-(``mesh.CHIP_HBM_BYTES``).
+(``mesh.CHIP_HBM_BYTES``).  ``--save-hlo DIR`` is accepted for the
+reference's command line and writes nothing: there is no HLO.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-27b --shape train_4k --mesh pod
@@ -27,7 +28,10 @@ NO_COUNTERPART = ("temp_bytes, output_bytes, alias_bytes, cost and hlo "
                   "nothing")
 
 
-def run_cell(arch: str, shape: str, mesh_kind: str) -> dict:
+def run_cell(arch: str, shape: str, mesh_kind: str,
+             save_hlo: str | None = None) -> dict:
+    """One cell's record.  ``save_hlo`` is the reference's HLO directory:
+    nothing is compiled, so nothing is written there."""
     from repro_torch.launch.cells import (SkipCell, build_cell, cell_leaves,
                                           leaf_bytes)
     from repro_torch.launch.mesh import CHIP_HBM_BYTES, make_production_mesh
@@ -73,13 +77,16 @@ def main(argv=None) -> int:
     # every cell runs in this process, one after another
     ap.add_argument("--jobs", type=int, default=4)
     ap.add_argument("--out", default="out/dryrun")
+    ap.add_argument("--save-hlo", default=None, metavar="DIR",
+                    help="accepted for the reference's command line; the "
+                    "dry run compiles nothing, so no HLO is written")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
 
     if not args.all:
         if not (args.arch and args.shape):
             ap.error("give --arch and --shape, or --all")
-        rec = run_cell(args.arch, args.shape, args.mesh)
+        rec = run_cell(args.arch, args.shape, args.mesh, args.save_hlo)
         print(f"[{rec['status']}] -> {_write(args.out, rec)}")
         return 0
 
@@ -87,7 +94,7 @@ def main(argv=None) -> int:
     counts = {"ok": 0, "skipped": 0}
     for arch, shape in all_cells():
         for mesh_kind in ("pod", "multipod"):
-            rec = run_cell(arch, shape, mesh_kind)
+            rec = run_cell(arch, shape, mesh_kind, args.save_hlo)
             _write(args.out, rec)
             counts[rec["status"]] += 1
             peak = rec.get("memory", {}).get("peak_bytes_per_device")

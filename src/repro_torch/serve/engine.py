@@ -42,15 +42,18 @@ pruned BFS.  The engine keeps that pipeline on the device:
   (``serve.aot``), and exports the ones it misses for the next process.
   ``submit`` calls the label phase through ``_label_phase`` and the
   residue through ``_coal_phases[bucket]``: the live methods, or
-  dispatchers that route exact input shapes and branches to the loaded
-  programs.  The BFS loop stays on the host between rounds.  Answers are
-  bitwise the same either way;
+  dispatchers that route exact input shapes to the loaded programs.  The
+  dirty flag is an input of every phase (a 0-d bool tensor, ``d_stale``),
+  as in the reference, so one program serves clean and dirty labels.  The
+  BFS loop stays on the host between rounds.  Answers are bitwise the
+  same either way;
 - **dispatch shapes**: ``dispatch_shape_counts()`` counts the distinct
   input signatures the label phase and the coalesced residue (one entry a
   chunk bucket's signature) were dispatched with: what a jit cache, a
   CUDA graph pool or an export cache must hold.  ``warmup(index,
   batch_sizes, bfs_buckets)`` dispatches each of them once with dead
-  lanes and loads the kernels, so the first served round builds nothing.
+  lanes and loads the kernels, so the first served round, clean or dirty,
+  builds nothing.
 
 **Query-axis serving** (``mesh=``, a ``distributed.query_mesh`` or a
 launch mesh, ``launch.mesh.make_mesh_compat``, whose axes are flattened;
@@ -357,8 +360,10 @@ class QueryEngine:
         # the distinct dispatch signatures of each query phase
         self._shapes: dict = {"label": set(), "bfs": set()}
         # (graph, the graph as the residue phases take it), for the last
-        # graph a dispatch read (_phase_graph)
+        # graph a dispatch read (_phase_graph); (graph, label_del_epoch,
+        # the 0-d dirty gate) for the last index state (_dirty_gate)
         self._phase_g = None
+        self._phase_gate = None
         self.aot_cache = None                        # set by aot_warmup()
         # the sharded layout's plan for the bound edges; rebuild() hands
         # its plan to the re-bind through _plan_override
@@ -483,51 +488,79 @@ class QueryEngine:
             return False
         return self.streaming
 
-    def _verdicts(self, p: Q.PackedLabels, u, v, m_cut, m_total, d_stale,
+    def _verdicts(self, p: Q.PackedLabels, u, v, m_cut, m_total, d_cut,
                   il=None):
         """Cutoff verdicts: the kernel on CUDA, its plain version on the
-        CPU.  A tombstone cutoff is passed only when the labels are stale;
-        ``il`` is the optional interval operand."""
-        return verdicts_device(p, u, v, m_cut, m_total,
-                               *self._d_cut(u, d_stale), il,
+        CPU, with the tombstone cutoff ``d_cut`` (``_d_cut``: two
+        freshness rows in either state); ``il`` is the optional interval
+        operand."""
+        return verdicts_device(p, u, v, m_cut, m_total, *d_cut, il,
                                out_dtype=self._out_torch,
                                streaming=self._verdict_streaming(il))
 
     @staticmethod
-    def _d_cut(u, d_stale: bool):
-        """(d_cut, d_total) marking every lane deletion-stale, or no cutoff
-        for clean labels."""
-        if not d_stale:
-            return None, None
-        return torch.zeros(u.shape, dtype=torch.int32, device=u.device), 1
+    def _d_cut(u, clean: torch.Tensor):
+        """(d_cut, d_total), the reference's ``_d_cut_vec``: a per-lane
+        tombstone cutoff from the 0-d gate ``clean`` (``~d_stale``), 0 < 1
+        on every lane when dirty and 1 >= 1 when clean, so that one
+        program serves both states.  Contiguous int32, as the kernels'
+        wrappers take it."""
+        return clean.expand(u.shape).to(torch.int32), 1
+
+    @staticmethod
+    def _gate(d_stale, device) -> torch.Tensor:
+        """``d_stale`` as the phases read it: a 0-d bool tensor (a host
+        bool is put on ``device``)."""
+        if isinstance(d_stale, torch.Tensor):
+            return d_stale
+        return torch.full((), bool(d_stale), dtype=torch.bool, device=device)
+
+    def _dirty_gate(self, index: DBLIndex) -> torch.Tensor:
+        """``index.is_dirty`` as the 0-d bool tensor the phases take as
+        ``d_stale``, filled on the index's device (no copy from the host).
+        Made once for each index state (its graph and the deletions its
+        labels cover), not on every dispatch."""
+        st = self._phase_gate
+        if st is None or st[0] is not index.graph \
+                or st[1] != index.label_del_epoch:
+            st = self._phase_gate = (index.graph, index.label_del_epoch,
+                                     self._gate(index.is_dirty,
+                                                index.device))
+        return st[2]
 
     def label_phase(self, p: Q.PackedLabels, u: torch.Tensor,
-                    v: torch.Tensor, d_stale: bool, il=None):
+                    v: torch.Tensor, d_stale, il=None):
         """Verdicts, attribution counts and the compaction of unknown
-        lanes.  ``il`` is the index's optional (il_in, il_out) interval
-        operand: a negative rule on clean labels, nothing while dirty, and
-        the attribution's "il" column.  Compaction is an
-        O(Q) cumsum/scatter, not a sort: unknown lanes keep submission
-        order at slots [0, nu), known lanes fill the tail, and endpoints
-        are scattered straight to their slots.  A vertex-sharded engine
-        reads the row blocks rebuilt by one ``all_reduce`` (two with
-        ``il``); a query-mesh engine runs its block of the lanes and
-        all-gathers the verdicts once."""
+        lanes.  ``d_stale`` is the index's dirty flag, a 0-d bool tensor
+        (or a host bool): with pending tombstones only self-positives and
+        BL negatives answer from labels.  ``il`` is the index's optional
+        (il_in, il_out) interval operand: a negative rule on clean labels,
+        nothing while dirty, and the attribution's "il" column.
+        Compaction is an O(Q) cumsum/scatter, not a sort: unknown lanes
+        keep submission order at slots [0, nu), known lanes fill the tail,
+        and endpoints are scattered straight to their slots.  A
+        vertex-sharded engine reads the row blocks rebuilt by one
+        ``all_reduce`` (two with ``il``); a query-mesh engine runs its
+        block of the lanes and all-gathers the verdicts once.  No layout
+        reads the gate on the host."""
+        clean = ~self._gate(d_stale, u.device)
         if self.vertex_mesh is not None:
             rows, il_rows = self._sharded_rows(p, il, u, v)
-            verd = Q.cut_verdicts_rows(rows, u, v, 1, 0, not d_stale,
+            verd = Q.cut_verdicts_rows(rows, u, v, 1, 0, clean,
                                        il_rows=il_rows)
         elif self.mesh is not None:
             def block(a, b):
                 fresh = torch.full(a.shape, Q.FRESH_CUT, dtype=torch.int32,
                                    device=a.device)
-                return self._verdicts(p, a, b, fresh, 0, d_stale, il)
+                return self._verdicts(p, a, b, fresh, 0,
+                                      self._d_cut(a, clean), il)
             verd = D.fan_out(self.mesh, block, u, v)
             rows, il_rows = Q.gather_rows(p, u, v), Q.gather_il_rows(il, u, v)
         else:
             fresh = torch.full(u.shape, Q.FRESH_CUT, dtype=torch.int32,
                                device=u.device)
-            verd = self._verdicts(p, u, v, fresh, 0, d_stale, il)
+            verd = self._verdicts(p, u, v, fresh, 0, self._d_cut(u, clean),
+                                  il)
             rows, il_rows = Q.gather_rows(p, u, v), Q.gather_il_rows(il, u, v)
         counts = Q.verdict_counts(verd, rows, il_rows)
         unknown = verd == -1
@@ -552,8 +585,8 @@ class QueryEngine:
                 None if il is None else PL.sharded_il_rows(il, u, v,
                                                            mesh=mesh))
 
-    def coalesced_phase(self, index: DBLIndex, uu, vv, m_cut,
-                        d_stale: bool, min_rounds: int = 0) -> torch.Tensor:
+    def coalesced_phase(self, index: DBLIndex, uu, vv, m_cut, d_stale,
+                        min_rounds: int = 0) -> torch.Tensor:
         """One chunk of an epoch-coalesced residue: re-check the lanes
         against the newest labels (verdict 0 → False, surviving +1 → True;
         stale-lane positives were downgraded by the cutoff), then run the
@@ -561,23 +594,25 @@ class QueryEngine:
         carry ``u = n_cap`` and never extend the BFS.  An "il" index adds
         its prune to the re-check and, on clean labels, to the admit
         planes (the sharded residue skips it there: the prune is sound,
-        so the hits are the same).  The replicated residue runs at least
-        ``min_rounds`` BFS rounds (``warmup``: a round on dead lanes
-        changes nothing)."""
+        so the hits are the same).  ``d_stale`` is the 0-d dirty gate
+        (``_dirty_gate``), read on the device by every layout.  The
+        replicated residue runs at least ``min_rounds`` BFS rounds
+        (``warmup``: a round on dead lanes changes nothing)."""
         g, p, il = index.graph, index.packed, index.il
         n_cap = index.n_cap
         self._shapes["bfs"].add(self._bfs_shape(g, p, il, uu))
         if self.vertex_mesh is not None:
+            clean = ~self._gate(d_stale, uu.device)
             live_lane = uu < n_cap
             uu_safe = uu.clamp(max=n_cap - 1)
             rows, il_rows = self._sharded_rows(p, il, uu_safe, vv)
             verd = Q.cut_verdicts_rows(rows, uu_safe, vv, m_cut, g.m,
-                                       not d_stale, il_rows=il_rows)
+                                       clean, il_rows=il_rows)
             need = live_lane & (verd == -1)
             uu2 = torch.where(need, uu, torch.full_like(uu, n_cap))
             hit = PL.sharded_pruned_bfs(
                 self._plan, p, rows, uu2, vv, G.edge_mask(g), m_cut, g.m,
-                not d_stale, max_iters=self.max_iters,
+                clean, max_iters=self.max_iters,
                 frontier_dtype=self.frontier_dtype)
             return ((verd == 1) & live_lane) | hit
         c = uu.shape[0]
@@ -605,29 +640,31 @@ class QueryEngine:
         return self._phase_g[1]
 
     def coalesced_prologue(self, g: G.Graph, p: Q.PackedLabels, il, uu, vv,
-                           m_cut, d_stale: bool):
+                           m_cut, d_stale):
         """The replicated residue up to its first BFS round: the re-check
         verdicts (the cutoff verdict kernel), the admit plane (the admit
-        kernel under ``bfs_kernel``) and ``Q.bfs_prologue``.  Returns
+        kernel under ``bfs_kernel``, its interval term gated by
+        ``~d_stale``) and ``Q.bfs_prologue``.  Returns
         (lanes the re-check answers True, carry, consts, go).  Only
-        tensors come in (``g`` as ``_phase_graph`` gives it) and go out,
-        so that ``torch.export`` takes it whole."""
+        tensors come in (``g`` as ``_phase_graph`` gives it, ``d_stale``
+        as ``_dirty_gate`` does; a host bool is taken too) and go out, so
+        that ``torch.export`` takes it whole."""
         n_cap = p.dl_in.shape[0]
+        clean = ~self._gate(d_stale, uu.device)
+        d_cut = self._d_cut(uu, clean)
         live_lane = uu < n_cap
         uu_safe = uu.clamp(max=n_cap - 1)
-        verd = self._verdicts(p, uu_safe, vv, m_cut, g.m, d_stale, il)
+        verd = self._verdicts(p, uu_safe, vv, m_cut, g.m, d_cut, il)
         need = live_lane & (verd == -1)
         uu2 = torch.where(need, uu, torch.full_like(uu, n_cap))
         admit = None
         if self.bfs_kernel:
             admit = admit_plane(p, uu2.clamp(max=n_cap - 1), vv, m_cut, g.m,
-                                *self._d_cut(uu, d_stale),
-                                None if d_stale else il,
-                                out_dtype=torch.int8,
+                                *d_cut, il, clean, out_dtype=torch.int8,
                                 device=self.device.type,
                                 streaming=self.streaming)
         carry, consts, go = Q.bfs_prologue(
-            g, p, uu2, vv, admit, m_cut, not d_stale, il, n_cap=n_cap,
+            g, p, uu2, vv, admit, m_cut, clean, il, n_cap=n_cap,
             frontier_dtype=self.frontier_dtype)
         return (verd == 1) & live_lane, carry, consts, go
 
@@ -638,17 +675,16 @@ class QueryEngine:
     # the dispatch keys of the query phases (``aot.ShapeDispatcher``): what
     # varies between one engine's calls of a phase.  Dtypes, the frontier
     # layout and the other knobs are fixed by the engine's configuration
-    # (the cache key holds them).
-    @staticmethod
-    def _label_key(p, u, v, dirty, il):
-        return (u.shape[0], bool(dirty), p.dl_in.shape, p.bl_in.shape,
-                None if il is None else il[0].shape)
+    # (the cache key holds them); the dirty gate is an input, as in the
+    # reference, so one program serves both states.
+    @classmethod
+    def _label_key(cls, p, u, v, d_stale, il):
+        return cls._label_shape(p, u, il)
 
     @staticmethod
     def _prologue_key(g, p, il, uu, vv, m_cut, d_stale):
-        return (uu.shape[0], bool(d_stale), m_cut is None, g.src.shape,
-                p.dl_in.shape, p.bl_in.shape,
-                None if il is None else il[0].shape)
+        return (uu.shape[0], m_cut is None, g.src.shape, p.dl_in.shape,
+                p.bl_in.shape, None if il is None else il[0].shape)
 
     @staticmethod
     def _round_key(carry, consts):
@@ -656,10 +692,10 @@ class QueryEngine:
 
     # the dispatch shapes (``dispatch_shape_counts``): the input signature
     # of a label phase and of a chunk bucket's residue, as the reference's
-    # jit caches key them.  The dirty flag is a traced input there (one
-    # executable serves both states), so it is not part of the signature;
-    # a vertex-sharded residue takes the plan's padded routing tables as
-    # inputs, so their extents are.
+    # jit caches key them.  The dirty flag is an input (one program serves
+    # both states), so it is not part of the signature; a vertex-sharded
+    # residue takes the plan's padded routing tables as inputs, so their
+    # extents are.
     @staticmethod
     def _label_shape(p, u, il):
         return (u.shape[0], p.dl_in.shape, p.bl_in.shape,
@@ -734,7 +770,7 @@ class QueryEngine:
         self._shapes["label"].add(self._label_shape(index.packed, uj,
                                                     index.il))
         answers, order, u_c, v_c, n_unknown, counts = self._label_phase(
-            index.packed, uj, vj, index.is_dirty, index.il)
+            index.packed, uj, vj, self._dirty_gate(index), index.il)
         if self._index is not None and index is self._index:
             tag = dict(lineage=self._lineage, epoch=self.epoch,
                        m_at_submit=self._m_now)
@@ -858,13 +894,14 @@ class QueryEngine:
                 cuts = np.concatenate([cuts,
                                        np.full(pad, Q.FRESH_CUT, np.int32)])
             dev = self.device
+            gate = self._dirty_gate(index)
             hit_parts = []
             for start in range(0, total, chunk):
                 sl = slice(start, start + chunk)
                 hit_parts.append(self.coalesced_phase(
                     index, torch.from_numpy(uu[sl]).to(dev),
                     torch.from_numpy(vv[sl]).to(dev),
-                    torch.from_numpy(cuts[sl]).to(dev), index.is_dirty))
+                    torch.from_numpy(cuts[sl]).to(dev), gate))
                 self.stats.bfs_dispatches += 1
             hits_all = torch.cat(hit_parts).cpu().numpy()[:total]
         off = 0
@@ -1006,11 +1043,13 @@ class QueryEngine:
         batch size (padded to a multiple of ``bfs_chunk``) and, for each chunk
         bucket, the coalesced residue's prologue and one BFS round.  Hits
         go behind the dispatch points; misses export this process's phases
-        so that the next process hits.  The programs are exported clean
-        (``d_stale`` False) with every lane fresh; any other branch or
-        shape runs the live phase.  Answers are bitwise the same either
-        way.  Replicated layout only: a mesh engine's collectives are bound
-        to its process group, so mesh engines refuse."""
+        so that the next process hits.  Each phase is exported once, with
+        every lane fresh and the index's 0-d dirty gate (``_dirty_gate``)
+        as an input, as the reference exports it: a loaded program serves
+        clean and dirty dispatches, and only another shape runs the live
+        phase.  Answers are bitwise the same either way.  Replicated layout
+        only: a mesh engine's collectives are bound to its process group,
+        so mesh engines refuse."""
         from repro_torch.serve.aot import AOTCache, ShapeDispatcher
         if self.vertex_mesh is not None or self.mesh is not None:
             raise ValueError("the AOT cache supports the replicated "
@@ -1018,25 +1057,7 @@ class QueryEngine:
         self._check_device(index)
         cache = AOTCache(cache_dir)
         self.aot_cache = cache
-        # every knob a program bakes in beyond its input shapes is in the
-        # key: a hit under other knobs would serve the old semantics (a
-        # smaller max_iters, another frontier layout).  The families and
-        # the interval draw are too: dim-equal planes from another rank
-        # seed have the same shapes.
-        config = {"max_iters": self.max_iters, "q_block": self.q_block,
-                  "bfs_chunk": self.bfs_chunk, "bfs_kernel": self.bfs_kernel,
-                  "streaming": self.streaming,
-                  "frontier_dtype": self.frontier_dtype,
-                  "out_dtype": self.out_dtype,
-                  "plane_repr": self.plane_repr,
-                  "halo_mode": self.halo_mode,
-                  "hub_count": self.hub_count,
-                  "halo_caps": None if self.halo_caps is None
-                  else list(self.halo_caps),
-                  "families": list(index.families),
-                  "il_dim": index.il_dim,
-                  "il_seed": None if index.il_seed is None
-                  else int(index.il_seed)}
+        config = self._aot_config(index)
         # a streaming engine given interval planes warns here, hit or miss
         self._verdict_streaming(index.il)
 
@@ -1052,11 +1073,12 @@ class QueryEngine:
             self._label_phase = ShapeDispatcher(self._label_phase,
                                                 self._label_key)
         i32 = dict(dtype=torch.int32, device=index.device)
+        gate = self._dirty_gate(index)
         for q in batch_sizes:
             qp = self._padded(q)
             entry("label", self._label_phase, self.label_phase,
                   (index.packed, torch.zeros(qp, **i32),
-                   torch.zeros(qp, **i32), False, index.il))
+                   torch.zeros(qp, **i32), gate, index.il))
         g = self._phase_graph(index.graph)
         for chunk in (bfs_buckets or self._chunk_buckets()):
             c = self._bucket_for(chunk)
@@ -1069,13 +1091,34 @@ class QueryEngine:
             args = (g, index.packed, index.il,
                     torch.full((c,), index.n_cap, **i32),
                     torch.zeros(c, **i32),
-                    torch.full((c,), Q.FRESH_CUT, **i32), False)
+                    torch.full((c,), Q.FRESH_CUT, **i32), gate)
             entry(f"coalesced-{c}", prologue, self.coalesced_prologue, args)
             # the round's inputs as a loaded prologue hands them over
             _, carry, consts, _ = self.coalesced_prologue(*args)
             entry(f"bfs-round-{c}", round_, self.coalesced_round,
                   (carry, consts))
         return self
+
+    def _aot_config(self, index: DBLIndex) -> dict:
+        """The AOT key's config: every knob a program bakes in beyond its
+        input shapes, since a hit under other knobs would serve the old
+        semantics (a smaller max_iters, another frontier layout).  The
+        families and the interval draw are in it too: dim-equal planes
+        from another rank seed have the same shapes."""
+        return {"max_iters": self.max_iters, "q_block": self.q_block,
+                "bfs_chunk": self.bfs_chunk, "bfs_kernel": self.bfs_kernel,
+                "streaming": self.streaming,
+                "frontier_dtype": self.frontier_dtype,
+                "out_dtype": self.out_dtype,
+                "plane_repr": self.plane_repr,
+                "halo_mode": self.halo_mode,
+                "hub_count": self.hub_count,
+                "halo_caps": None if self.halo_caps is None
+                else list(self.halo_caps),
+                "families": list(index.families),
+                "il_dim": index.il_dim,
+                "il_seed": None if index.il_seed is None
+                else int(index.il_seed)}
 
     # ------------------------------------------------------ introspection
     def dispatch_shape_counts(self) -> dict:
@@ -1109,11 +1152,12 @@ class QueryEngine:
         """Build and load the kernels the phases launch
         (``kernels._build``), then dispatch the label phase for each batch
         size and the coalesced residue for each chunk bucket (default the
-        ``bfs_chunk`` one) with dead lanes, clean, as serving dispatches
-        them, with one BFS round, which dead lanes would skip: the
-        reference compiles the loop's body with its phase, and here a
-        live lane's first round would pay the round's first launches.
-        On a mesh every rank calls it."""
+        ``bfs_chunk`` one) with dead lanes and the index's dirty gate, as
+        serving dispatches them, with one BFS round, which dead lanes
+        would skip: the reference compiles the loop's body with its phase,
+        and here a live lane's first round would pay the round's first
+        launches.  The gate is an input, so the one dispatch warms clean
+        and dirty rounds alike.  On a mesh every rank calls it."""
         from repro_torch.kernels import _build
         self._check_device(index)
         for name in self._kernel_libraries(index):
@@ -1125,8 +1169,8 @@ class QueryEngine:
             c = self._bucket_for(chunk)
             self.coalesced_phase(index, torch.full((c,), index.n_cap, **i32),
                                  torch.zeros(c, **i32),
-                                 torch.full((c,), Q.FRESH_CUT, **i32), False,
-                                 min_rounds=1)
+                                 torch.full((c,), Q.FRESH_CUT, **i32),
+                                 self._dirty_gate(index), min_rounds=1)
         return self
 
     def check_saturation(self, *, warn: bool = True) -> int:

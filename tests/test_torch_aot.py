@@ -190,8 +190,9 @@ def test_aot_hit_engine_through_inserts_and_deletes(tmp_path, knobs):
     assert eng.aot_cache.misses == 0
     got = _stream(eng, np.random.default_rng(4), 256, src, dst, late)
     assert _loaded_calls(eng) > 3
-    # a dirty dispatch never reaches a program exported clean
-    assert eng._label_phase.live_calls == 1
+    # the dirty flag is an input of the programs: a dirty dispatch
+    # reaches the same loaded program as a clean one
+    assert eng._label_phase.live_calls == 0
     k = late[0].size
     assert not got[1][:k].any() and got[2][:k].all()
     want = _stream(JEngine(_j_index(), **kw), np.random.default_rng(4),

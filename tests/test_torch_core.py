@@ -140,6 +140,31 @@ def test_select_landmarks_ties_and_leaves_match(method):
             _eq(a, b)
 
 
+def test_select_landmarks_k_above_n_cap_raises_as_reference():
+    """k > n_cap raises ``ValueError`` on both sides (``lax.top_k`` in the
+    reference), through ``select_landmarks`` and ``DBLIndex.build``;
+    k' > n_cap stays valid, and both sides build the same index."""
+    from repro.core import DBLIndex as JIndex
+    from repro_torch.core import DBLIndex as TIndex
+    src = np.array([0, 1, 2], np.int32)
+    dst = np.array([1, 2, 3], np.int32)
+    gj, gt = _graphs(4, src, dst)
+    for sel in (lambda: JS.select_landmarks(gj, n_cap=6, k=8),
+                lambda: TS.select_landmarks(gt, n_cap=6, k=8),
+                lambda: JIndex.build(gj, n_cap=6, k=8, k_prime=8),
+                lambda: TIndex.build(gt, n_cap=6, k=8, k_prime=8,
+                                     device=CPU)):
+        with pytest.raises(ValueError, match="top_k"):
+            sel()
+    ij = JIndex.build(gj, n_cap=6, k=2, k_prime=8)
+    it = TIndex.build(gt, n_cap=6, k=2, k_prime=8, device=CPU)
+    for name in ("landmarks", "dl_in", "dl_out", "bl_in", "bl_out"):
+        _eq(getattr(ij, name), getattr(it, name))
+    u = np.array([0, 0, 3, 1, 2, 5], np.int32)
+    v = np.array([3, 2, 0, 1, 4, 5], np.int32)
+    _eq(ij.query(u, v, driver="host"), it.query(u, v, driver="host"))
+
+
 @pytest.mark.parametrize("gen,max_iters", [
     ("power_law", 64), ("dag_like", 64), ("dag_like", 3)])
 def test_build_planes_and_iters_match(gen, max_iters):

@@ -219,6 +219,26 @@ def test_dryrun_cli_all(tmp_path, ref):
                 assert rec["meta"] == want["meta"]
 
 
+def test_dryrun_cli_accepts_save_hlo(tmp_path, ref):
+    """``--save-hlo DIR``, which the reference's command line takes, exits
+    0, writes the cell's record as without it, and writes no HLO."""
+    env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}"}
+    hlo = tmp_path / "hlo"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "tinyllama-1.1b", "--shape", "train_4k", "--save-hlo", str(hlo),
+         "--out", str(tmp_path)], env=env, capture_output=True, text=True,
+        timeout=RUN_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with open(tmp_path / "tinyllama-1.1b__train_4k__pod.json") as f:
+        rec = json.load(f)
+    want = ref["cells"]["tinyllama-1.1b/train_4k/pod"]
+    assert rec["status"] == want["status"] == "ok"
+    assert rec["memory"]["argument_bytes"] == sum(
+        w[3] for w in want["leaves"].values())
+    assert not hlo.exists() or not any(hlo.iterdir())
+
+
 def test_production_mesh_and_constants():
     pod, multi = M.make_production_mesh(), \
         M.make_production_mesh(multi_pod=True)
