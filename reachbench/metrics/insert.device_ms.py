@@ -1,0 +1,6 @@
+"""insert.device_ms: device-busy ms inside the insert calls, per call."""
+from reachbench.readers import range_device_ms
+
+
+def read(run):
+    return range_device_ms(run, "insert")

@@ -1,0 +1,6 @@
+"""query_qps: queries answered in the window over the whole window."""
+from reachbench.readers import rate
+
+
+def read(run):
+    return rate(run, "query")
