@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.tracing import span
+
 WORD = 32
 
 
@@ -85,8 +87,12 @@ def segment_or_flags(vals: torch.Tensor, start: torch.Tensor,
     ``num_segments`` are dropped.  Returns (num_segments, W), zero for
     empty segments.  The scan takes as many steps as the longest run of
     equal ``seg_ids`` needs, which costs one host read."""
-    longest = int(torch.unique_consecutive(
-        seg_ids, return_counts=True)[1].max()) if seg_ids.numel() else 0
+    longest = 0
+    if seg_ids.numel():
+        with span("repro_torch.sync.segment_runs"):
+            runs = torch.unique_consecutive(seg_ids, return_counts=True)[1]
+        with span("repro_torch.sync.segment_runs"):
+            longest = int(runs.max())
     steps = max(longest - 1, 0).bit_length()
     flag, acc = start, vals
     d = 1

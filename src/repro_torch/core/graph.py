@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tracing import span
 
 #: ``del_at`` sentinel for never-deleted edges, above any delete epoch.
 ALIVE = np.iinfo(np.int32).max
@@ -128,8 +129,13 @@ def insert_edges(g: Graph, new_src: torch.Tensor, new_dst: torch.Tensor,
     keep = idx < g.m_cap
     src = g.src.clone()
     dst = g.dst.clone()
-    src[idx[keep]] = new_src[keep]
-    dst[idx[keep]] = new_dst[keep]
+    # each boolean-mask index reads its count from the card
+    with span("repro_torch.sync.insert_keep"):
+        at = idx[keep]
+    with span("repro_torch.sync.insert_keep"):
+        src[at] = new_src[keep]
+    with span("repro_torch.sync.insert_keep"):
+        dst[at] = new_dst[keep]
     n = g.n if new_n is None else torch.clamp(g.n, min=int(new_n))
     if b:
         nmax = torch.maximum(new_src.max(), new_dst.max()) + 1
@@ -146,10 +152,14 @@ def delete_edges(g: Graph, del_src, del_dst) -> Graph:
     bumps).  Labels are not touched.  Pairs are matched as 64-bit keys
     ``src * 2**32 + dst`` with ``isin``, the same set as the reference's
     all-pairs comparison without its (m_cap, b) intermediate."""
-    ds = torch.as_tensor(del_src, dtype=torch.int64, device=g.device)
-    dd = torch.as_tensor(del_dst, dtype=torch.int64, device=g.device)
+    with span("repro_torch.sync.delete_input"):
+        ds = torch.as_tensor(del_src, dtype=torch.int64, device=g.device)
+    with span("repro_torch.sync.delete_input"):
+        dd = torch.as_tensor(del_dst, dtype=torch.int64, device=g.device)
     keys = (g.src.to(torch.int64) << 32) | (g.dst.to(torch.int64) & _U32)
-    hit = torch.isin(keys, (ds << 32) | (dd & _U32)) & edge_mask(g)
+    with span("repro_torch.sync.delete_match"):
+        hit = torch.isin(keys, (ds << 32) | (dd & _U32))
+    hit = hit & edge_mask(g)
     epoch2 = g.del_epoch + 1
     del_at = torch.where(hit, torch.full_like(g.del_at, epoch2), g.del_at)
     return replace(g, del_at=del_at, del_epoch=epoch2)

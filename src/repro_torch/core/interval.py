@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tracing import span
 from . import families as F
 from . import graph as G
 from . import propagate as P
@@ -89,17 +90,20 @@ def insert_update_il(g2: G.Graph, il_in: torch.Tensor, il_out: torch.Tensor,
     def gather(plane, ids):
         return plane[ids.clamp(0, n_cap - 1).long()]
 
-    seeded_in, fr_in = P.seed_scatter_min(il_in, gather(il_in, new_src),
-                                          new_dst, n_cap)
-    il_in2, it0 = P.propagate(seeded_in, g2.src, g2.dst, live, fr_in,
-                              n_cap=n_cap, monoid="min", max_iters=max_iters,
-                              inplace=True, combine=combine)
-    seeded_out, fr_out = P.seed_scatter_min(il_out, gather(il_out, new_dst),
-                                            new_src, n_cap)
-    il_out2, it1 = P.propagate(seeded_out, g2.src, g2.dst, live, fr_out,
-                               n_cap=n_cap, monoid="min",
-                               max_iters=max_iters, reverse=True,
-                               inplace=True, combine=combine)
+    with span("repro_torch.insert.fixpoint"):
+        seeded_in, fr_in = P.seed_scatter_min(il_in, gather(il_in, new_src),
+                                              new_dst, n_cap)
+        il_in2, it0 = P.propagate(seeded_in, g2.src, g2.dst, live, fr_in,
+                                  n_cap=n_cap, monoid="min",
+                                  max_iters=max_iters, inplace=True,
+                                  combine=combine)
+    with span("repro_torch.insert.fixpoint"):
+        seeded_out, fr_out = P.seed_scatter_min(
+            il_out, gather(il_out, new_dst), new_src, n_cap)
+        il_out2, it1 = P.propagate(seeded_out, g2.src, g2.dst, live, fr_out,
+                                   n_cap=n_cap, monoid="min",
+                                   max_iters=max_iters, reverse=True,
+                                   inplace=True, combine=combine)
     return il_in2, il_out2, [it0, it1]
 
 

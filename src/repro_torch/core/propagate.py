@@ -38,6 +38,8 @@ from typing import Literal
 
 import torch
 
+from repro_torch.tracing import span
+
 from . import bitset
 
 Monoid = Literal["or", "min"]
@@ -73,12 +75,30 @@ def segment_or(base: torch.Tensor, rows: torch.Tensor,
     """OR 0/1 ``rows`` (b, k) into ``base`` (n, k) in place at row ids
     ``at`` (b,), dropping ids outside ``[0, n)``.  Returns ``base``."""
     keep = (at >= 0) & (at < base.shape[0])
-    if not bool(keep.all()):
-        at, rows = at[keep], rows[keep]
+    with span("repro_torch.sync.segment_keep"):
+        kept = bool(keep.all())
+    if not kept:
+        with span("repro_torch.sync.segment_keep"):
+            at = at[keep]
+        with span("repro_torch.sync.segment_keep"):
+            rows = rows[keep]
     if at.numel():
         base.index_reduce_(0, at.long(), rows.to(base.dtype), "amax",
                            include_self=True)
     return base
+
+
+def _any(frontier: torch.Tensor) -> bool:
+    """Whether a fixpoint's frontier holds a row: one host read."""
+    with span("repro_torch.sync.fixpoint_go"):
+        return bool(frontier.any())
+
+
+def _frontier_edges(on_frontier: torch.Tensor) -> torch.Tensor:
+    """The ids of the edges whose tail is on the frontier: a host read
+    of their count."""
+    with span("repro_torch.sync.fixpoint_edges"):
+        return torch.nonzero(on_frontier).squeeze(1)
 
 
 def _propagate_packed(labels, src, dst, live, frontier, n_cap, max_iters):
@@ -92,15 +112,16 @@ def _propagate_packed(labels, src, dst, live, frontier, n_cap, max_iters):
     order = torch.argsort(dst)
     src_s, dst_s, live_s = src[order], dst[order], live[order]
     it = 0
-    while it < max_iters and bool(frontier.any()):
-        eidx = torch.nonzero(frontier[src_s] & live_s).squeeze(1)
-        ed = dst_s[eidx]
-        agg = bitset.sorted_segment_or(words[src_s[eidx]], ed, n_cap)
-        new = (words | agg) & mask
-        frontier = (new != words).any(-1)
-        words = new
+    while it < max_iters and _any(frontier):
+        with span("repro_torch.insert.round"):
+            eidx = _frontier_edges(frontier[src_s] & live_s)
+            ed = dst_s[eidx]
+            agg = bitset.sorted_segment_or(words[src_s[eidx]], ed, n_cap)
+            new = (words | agg) & mask
+            frontier = (new != words).any(-1)
+            words = new
         it += 1
-    if bool(frontier.any()):
+    if _any(frontier):
         it = max_iters + 1
     return bitset.unpack(words, k).to(labels.dtype), it
 
@@ -154,26 +175,27 @@ def propagate(labels: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         labels = labels.contiguous()          # a collective's buffer
     reduce = "amax" if monoid == "or" else "amin"
     it = 0
-    while it < max_iters and bool(frontier.any()):
-        eidx = torch.nonzero(frontier[src] & live).squeeze(1)
-        es, ed = src[eidx], dst[eidx]
-        if combine is None:
-            old = labels[ed]
-            labels.index_reduce_(0, ed, labels[es], reduce,
-                                 include_self=True)
-            changed = torch.zeros(n_cap, dtype=torch.bool,
-                                  device=labels.device)
-            changed[ed] = (labels[ed] != old).any(-1)
-        else:
-            # another process's edges may change any row
-            old = labels.clone()
-            labels.index_reduce_(0, ed, labels[es], reduce,
-                                 include_self=True)
-            combine(labels, monoid)
-            changed = (labels != old).any(-1)
-        frontier = changed
+    while it < max_iters and _any(frontier):
+        with span("repro_torch.insert.round"):
+            eidx = _frontier_edges(frontier[src] & live)
+            es, ed = src[eidx], dst[eidx]
+            if combine is None:
+                old = labels[ed]
+                labels.index_reduce_(0, ed, labels[es], reduce,
+                                     include_self=True)
+                changed = torch.zeros(n_cap, dtype=torch.bool,
+                                      device=labels.device)
+                changed[ed] = (labels[ed] != old).any(-1)
+            else:
+                # another process's edges may change any row
+                old = labels.clone()
+                labels.index_reduce_(0, ed, labels[es], reduce,
+                                     include_self=True)
+                combine(labels, monoid)
+                changed = (labels != old).any(-1)
+            frontier = changed
         it += 1
-    if bool(frontier.any()):
+    if _any(frontier):
         it = max_iters + 1
     return labels, it
 
@@ -240,7 +262,8 @@ def seed_scatter_or(base: torch.Tensor, values: torch.Tensor,
         return new, frontier
     new = base if inplace else base.clone()
     keep = (at >= 0) & (at < n_cap)
-    at_k = at[keep]
+    with span("repro_torch.sync.seed_keep"):
+        at_k = at[keep]
     old = new[at_k]
     segment_or(new, values, at)
     frontier = torch.zeros(n_cap, dtype=torch.bool, device=base.device)
@@ -258,9 +281,12 @@ def seed_scatter_min(base: torch.Tensor, values: torch.Tensor,
     new = base.clone()
     at = at.long()
     keep = (at >= 0) & (at < n_cap)
-    at_k = at[keep]
+    with span("repro_torch.sync.seed_keep"):
+        at_k = at[keep]
     if at_k.numel():
-        new.index_reduce_(0, at_k, values[keep].to(base.dtype), "amin",
+        with span("repro_torch.sync.seed_keep"):
+            values = values[keep]
+        new.index_reduce_(0, at_k, values.to(base.dtype), "amin",
                           include_self=True)
     frontier = torch.zeros(n_cap, dtype=torch.bool, device=base.device)
     frontier[at_k] = (new[at_k] != base[at_k]).any(-1)

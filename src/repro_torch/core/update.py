@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.tracing import span
+
 from . import graph as G
 from .propagate import propagate, seed_scatter_or
 
@@ -60,14 +62,15 @@ def update_inserted(g2: G.Graph, planes, new_src: torch.Tensor,
     new_dst = new_dst.to(device=g2.device, dtype=torch.int32)
 
     def run(plane, reverse):
-        seeded, frontier = insert_seeds(plane, new_src, new_dst,
-                                        n_cap=n_cap, reverse=reverse,
-                                        plane_repr=plane_repr,
-                                        inplace=inplace)
-        return propagate(seeded, g2.src, g2.dst, live, frontier,
-                         n_cap=n_cap, max_iters=max_iters, reverse=reverse,
-                         plane_repr=plane_repr, inplace=True,
-                         combine=combine)
+        with span("repro_torch.insert.fixpoint"):
+            seeded, frontier = insert_seeds(plane, new_src, new_dst,
+                                            n_cap=n_cap, reverse=reverse,
+                                            plane_repr=plane_repr,
+                                            inplace=inplace)
+            return propagate(seeded, g2.src, g2.dst, live, frontier,
+                             n_cap=n_cap, max_iters=max_iters,
+                             reverse=reverse, plane_repr=plane_repr,
+                             inplace=True, combine=combine)
 
     out = [run(p, rev) for p, rev in zip(planes, (False, True, False, True))]
     return [p for p, _ in out], [it for _, it in out]

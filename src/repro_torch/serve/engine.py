@@ -110,6 +110,7 @@ from repro_torch.kernels.bfs_prune.ops import admit_plane
 from repro_torch.kernels.dbl_query.ops import (StreamILFallbackWarning,
                                                verdicts_device)
 from repro_torch.launch.mesh import Mesh
+from repro_torch.tracing import span
 
 #: supported consistency modes (``"latest-snapshot"`` is an alias)
 CONSISTENCY_MODES = ("as-of-submit", "latest")
@@ -186,6 +187,24 @@ class EngineStats:
                 "prune_hits": dict(self.prune_hits)}
 
 
+def _go(go: torch.Tensor) -> bool:
+    """The residue loop's 0-d ``go`` on the host: one read a BFS round."""
+    with span("repro_torch.sync.bfs_go"):
+        return bool(go)
+
+
+def _to_card(x: np.ndarray, device, site: str) -> torch.Tensor:
+    """``x`` copied to ``device``, in the host wait's ``sync`` span."""
+    with span(site):
+        return torch.from_numpy(x).to(device)
+
+
+def _to_host(x: torch.Tensor, site: str) -> np.ndarray:
+    """``x`` read back as numpy, in the host wait's ``sync`` span."""
+    with span(site):
+        return x.cpu().numpy()
+
+
 class _Pending:
     """Handle for a submitted batch: label phase done, BFS deferred.
 
@@ -221,7 +240,8 @@ class _Pending:
     def nu(self) -> int:
         """Unknown-lane count, read from the device once per batch."""
         if self._nu is None:
-            self._nu = min(int(self.n_unknown), self.q)
+            with span("repro_torch.sync.n_unknown"):
+                self._nu = min(int(self.n_unknown), self.q)
         return self._nu
 
     def resolve(self) -> np.ndarray:
@@ -618,13 +638,18 @@ class QueryEngine:
         c = uu.shape[0]
         prologue, round_ = self._coal_phases.get(
             c, (self.coalesced_prologue, self.coalesced_round))
-        known, carry, consts, go = prologue(self._phase_graph(g), p, il, uu,
-                                            vv, m_cut, d_stale)
-        it = 0
-        while it < self.max_iters and (it < min_rounds or bool(go)):
-            carry, go = round_(carry, consts)
-            it += 1
-        return known | Q.bfs_hits(carry, c, self.frontier_dtype)
+        with span("repro_torch.query.residue.chunk"):
+            known, carry, consts, go = prologue(self._phase_graph(g), p, il,
+                                                uu, vv, m_cut, d_stale)
+            it = 0
+            while it < self.max_iters and (it < min_rounds or _go(go)):
+                # the round's one read, the count of its frontier's edges,
+                # lies inside the round torch.export takes whole
+                with span("repro_torch.query.residue.round"), \
+                        span("repro_torch.sync.bfs_edges"):
+                    carry, go = round_(carry, consts)
+                it += 1
+            return known | Q.bfs_hits(carry, c, self.frontier_dtype)
 
     def _phase_graph(self, g: G.Graph) -> G.Graph:
         """``g`` with ``m`` and ``del_epoch`` as 0-d int32 tensors, filled
@@ -758,19 +783,20 @@ class QueryEngine:
             # pad with self-queries on vertex 0: verdict +1, never unknown
             u = np.pad(u, (0, qp - q))
             v = np.pad(v, (0, qp - q))
-        return (torch.from_numpy(u).to(self.device),
-                torch.from_numpy(v).to(self.device), q)
+        return (_to_card(u, self.device, "repro_torch.sync.query_input"),
+                _to_card(v, self.device, "repro_torch.sync.query_input"), q)
 
     def submit(self, index: DBLIndex, u, v) -> _Pending:
         """Run the label phase now; the BFS is deferred to ``resolve()`` /
         ``flush()``.  Submits against the bound index are tagged with the
         current epoch and edge count and survive later ``insert()``s."""
         self._check_device(index)
-        uj, vj, q = self._pad_queries(u, v)
-        self._shapes["label"].add(self._label_shape(index.packed, uj,
-                                                    index.il))
-        answers, order, u_c, v_c, n_unknown, counts = self._label_phase(
-            index.packed, uj, vj, self._dirty_gate(index), index.il)
+        with span("repro_torch.query.label"):
+            uj, vj, q = self._pad_queries(u, v)
+            self._shapes["label"].add(self._label_shape(index.packed, uj,
+                                                        index.il))
+            answers, order, u_c, v_c, n_unknown, counts = self._label_phase(
+                index.packed, uj, vj, self._dirty_gate(index), index.il)
         if self._index is not None and index is self._index:
             tag = dict(lineage=self._lineage, epoch=self.epoch,
                        m_at_submit=self._m_now)
@@ -861,6 +887,10 @@ class QueryEngine:
         return [results[i] for i in range(len(pendings))]
 
     def _finish_group(self, grp, results, mode, engine_group):
+        with span("repro_torch.query.residue"):
+            self._resolve_group(grp, results, mode, engine_group)
+
+    def _resolve_group(self, grp, results, mode, engine_group):
         infos = [(i, p, p.nu) for i, p in grp]
         total = sum(nu for _, _, nu in infos)
         hits_all = np.zeros(0, np.bool_)
@@ -872,10 +902,12 @@ class QueryEngine:
                     "lineage only)")
             index = self._index if engine_group else grp[0][1].index
             n_cap = index.n_cap
-            uu = np.concatenate([p.u_c[:nu].cpu().numpy()
-                                 for _, p, nu in infos if nu])
-            vv = np.concatenate([p.v_c[:nu].cpu().numpy()
-                                 for _, p, nu in infos if nu])
+            uu = np.concatenate([
+                _to_host(p.u_c[:nu], "repro_torch.sync.residue_lanes")
+                for _, p, nu in infos if nu])
+            vv = np.concatenate([
+                _to_host(p.v_c[:nu], "repro_torch.sync.residue_lanes")
+                for _, p, nu in infos if nu])
             if engine_group and mode == "as-of-submit":
                 cuts = np.concatenate([
                     np.full(nu, p.m_at_submit, np.int32)
@@ -898,17 +930,19 @@ class QueryEngine:
             hit_parts = []
             for start in range(0, total, chunk):
                 sl = slice(start, start + chunk)
-                hit_parts.append(self.coalesced_phase(
-                    index, torch.from_numpy(uu[sl]).to(dev),
-                    torch.from_numpy(vv[sl]).to(dev),
-                    torch.from_numpy(cuts[sl]).to(dev), gate))
+                uc, vc, cc = [_to_card(x[sl], dev,
+                                       "repro_torch.sync.residue_input")
+                              for x in (uu, vv, cuts)]
+                hit_parts.append(self.coalesced_phase(index, uc, vc, cc,
+                                                      gate))
                 self.stats.bfs_dispatches += 1
-            hits_all = torch.cat(hit_parts).cpu().numpy()[:total]
+            hits_all = _to_host(torch.cat(hit_parts),
+                                "repro_torch.sync.hits")[:total]
         off = 0
         for i, p, nu in infos:
-            ans = p.answers.cpu().numpy().copy()
+            ans = _to_host(p.answers, "repro_torch.sync.answers").copy()
             if nu:
-                order = p.order[:nu].cpu().numpy()
+                order = _to_host(p.order[:nu], "repro_torch.sync.order")
                 ans[order] = hits_all[off:off + nu]
                 off += nu
             out = ans[:p.q]
@@ -921,7 +955,8 @@ class QueryEngine:
             if p.counts is not None:
                 # padding lanes are vertex-0 self-queries, charged to "dl"
                 # by the label phase; back them out
-                dl, bl, il, thm = (int(x) for x in p.counts.cpu())
+                with span("repro_torch.sync.counts"):
+                    dl, bl, il, thm = (int(x) for x in p.counts.cpu())
                 pad = int(p.answers.shape[0]) - p.q
                 ph = self.stats.prune_hits
                 ph["dl"] += dl - pad
@@ -936,8 +971,9 @@ class QueryEngine:
         if q == 0:
             ans = np.zeros(0, np.bool_)
             return (ans, {"rho": 1.0, "n_bfs": 0}) if return_stats else ans
-        pend = self.submit(index, u, v)
-        ans = pend.resolve()
+        with span("repro_torch.query"):
+            pend = self.submit(index, u, v)
+            ans = pend.resolve()
         if return_stats:
             nu = pend.nu
             return ans, {"rho": 1.0 - nu / q, "n_bfs": nu}
@@ -959,18 +995,21 @@ class QueryEngine:
             raise ValueError("engine has no bound index; use run()")
         ns = np.asarray(new_src, np.int32).ravel()
         nd = np.asarray(new_dst, np.int32).ravel()
-        if self.vertex_mesh is not None:
-            # sharded Alg 3; the plan is extended to the appended edges
-            idx2, self._plan, sat = D.insert_vertex_sharded(
-                self._index, self._plan, ns, nd, max_iters=self.max_iters,
-                check="defer", plane_repr=self.plane_repr,
-                halo_mode=self.halo_mode, halo_caps=self.halo_caps,
-                telemetry=self._halo_telemetry)
-            self._index = replace(idx2, epoch=self.epoch + 1)
-        else:
-            self._index, sat = self.insert_impl(
-                self._index, torch.from_numpy(ns).to(self.device),
-                torch.from_numpy(nd).to(self.device))
+        with span("repro_torch.insert"):
+            if self.vertex_mesh is not None:
+                # sharded Alg 3; the plan is extended to the appended edges
+                idx2, self._plan, sat = D.insert_vertex_sharded(
+                    self._index, self._plan, ns, nd,
+                    max_iters=self.max_iters, check="defer",
+                    plane_repr=self.plane_repr, halo_mode=self.halo_mode,
+                    halo_caps=self.halo_caps,
+                    telemetry=self._halo_telemetry)
+                self._index = replace(idx2, epoch=self.epoch + 1)
+            else:
+                site = "repro_torch.sync.insert_input"
+                self._index, sat = self.insert_impl(
+                    self._index, _to_card(ns, self.device, site),
+                    _to_card(nd, self.device, site))
         self._sat_flags.append(sat)   # surfaced at flush boundaries
         self.epoch += 1
         self._m_now += int(ns.size)
@@ -986,12 +1025,13 @@ class QueryEngine:
         and the engine its plan: tombstones do not change the plan."""
         if self._index is None:
             raise ValueError("engine has no bound index; use run()")
-        self._drain_inflight()
-        idx = self._index
-        ds = np.asarray(del_src, np.int32).ravel()
-        dd = np.asarray(del_dst, np.int32).ravel()
-        g2, epoch2 = U.delete_and_mark(idx.graph, ds, dd, self.epoch)
-        self._index = replace(idx, graph=g2, epoch=epoch2)
+        with span("repro_torch.delete"):
+            self._drain_inflight()
+            idx = self._index
+            ds = np.asarray(del_src, np.int32).ravel()
+            dd = np.asarray(del_dst, np.int32).ravel()
+            g2, epoch2 = U.delete_and_mark(idx.graph, ds, dd, self.epoch)
+            self._index = replace(idx, graph=g2, epoch=epoch2)
         self.epoch += 1
         self.stats.deletes += int(ds.size)
         return self._index

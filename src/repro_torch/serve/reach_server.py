@@ -22,6 +22,20 @@ the same calls.  ``aot_cache=DIR`` warms the engine's query phases from a
 disk cache of ``torch.export`` programs (``serve.aot``) and fills it on
 a miss; ``engine_stats()["aot"]`` counts its hits, misses and stores.
 
+Tracing: while a ``torch.profiler`` records, the serving path records
+named spans (``repro_torch.query`` with its ``.label`` and ``.residue``
+phases and the residue's chunks and BFS rounds, ``repro_torch.insert``
+with its fixpoints and rounds, ``repro_torch.delete``, and a
+``repro_torch.sync.<site>`` span around every host read of the device,
+``repro_torch.tracing``) in the same trace as the CUDA kernels; the
+profiler is the operator's switch::
+
+    with torch.profiler.profile() as prof:
+        server.query(u, v)
+    prof.export_chrome_trace("serve.json")
+
+With no profiler recording, a span costs one check of its state.
+
     python -m repro_torch.serve.reach_server [--device cuda|cpu] \
         [--aot-cache DIR] ...
     torchrun --nproc_per_node N -m repro_torch.serve.reach_server \
@@ -38,6 +52,7 @@ import torch
 from repro_torch.core import graph as G
 from repro_torch.core.dbl import DBLIndex
 from repro_torch.serve.engine import QueryEngine
+from repro_torch.tracing import span
 
 
 @dataclass
@@ -209,7 +224,8 @@ class ReachabilityServer:
         self.stats.delete_s += time.perf_counter() - t
         self.stats.deletes += len(np.asarray(src))
         if self.rebuild_dead_ratio is not None and not self._rebuild_due:
-            dead = int(G.dead_edge_count(idx.graph))
+            with span("repro_torch.sync.dead_edges"):
+                dead = int(G.dead_edge_count(idx.graph))
             live = max(idx.graph.m - dead, 1)
             if dead / live >= self.rebuild_dead_ratio:
                 self._rebuild_due = True
