@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. device: CUDA must be present; prints the card's name and power limit.
-2. build: compiles the four CUDA kernels from
+2. build: compiles the five CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
    together) and prints every kernel's registers and spills per template
    instance (``-Xptxas -v``).
@@ -24,7 +24,12 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    three or more chunks; bitwise equality is required.  Then each
    kernel's time, its plain version's time and its least possible time
    (bound) at the main path's shapes, and for each verdict shape the
-   launch floor: ``zero_`` of the same output, timed the same way.
+   launch floor: ``zero_`` of the same output, timed the same way.  The
+   label-plane pack kernel (``pack_label_planes``) is held bitwise to
+   ``bitset.pack`` and timed the same way at the benchmark's LiveJournal
+   n_cap (4 847 571 rows, k = k' = 64, uint8 planes); the CPU tests and
+   the ``chip`` tests of ``tests/test_torch_pack_planes.py`` cover its
+   other widths and alignments.
 4. main path: the LJ preset at full size (n = 60 000, m = 850 000) is
    built with ``DBLIndex.build(k=64, k_prime=64, max_iters=64)`` and served
    by a ``ReachabilityServer`` over ``QueryEngine(bfs_chunk=64,
@@ -32,7 +37,9 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    inserted edges, one round through submit -> insert -> flush.  Every
    BFS-residue lane and 64 random lanes per round are checked against a
    host BFS over that round's snapshot.  The grid kernels' launch counters
-   must grow during this phase.
+   must grow during this phase, and each insert must launch the pack
+   kernel once (its counter starts from 0 here, so the ``kernels`` line
+   counts its launches from this phase on).
 5. dynamic: a second LJ index at full size served fully dynamically by a
    ``ReachabilityServer(rebuild_mode="auto", rebuild_dead_ratio=0.001)``
    over ``QueryEngine(streaming=True, bfs_kernel=True)``: 4 rounds of
@@ -286,6 +293,9 @@ LABEL_Q = -(-QUERIES // BFS_CHUNK) * BFS_CHUNK
 #: the coalesced phase's chunk sizes: the engine's buckets up to bfs_chunk
 CHUNK_QS = (16, 32, 64)
 LJ_N = 60_000
+#: the benchmark's LiveJournal configuration: n_cap of the pack kernel's
+#: main-path shape (every insert repacks four (n_cap, 64) planes)
+PACK_N = 4_847_571
 #: the widest admit plane of the parity sweep: more lane groups than a
 #: block of either admit kernel has threads
 ADMIT_MAX_Q = 2_500
@@ -717,6 +727,8 @@ def kernel_timings(dev):
     from repro_torch.kernels.dbl_query.dbl_query import (
         freshness_rows, streamed_verdicts_rows, verdicts_op, verdicts_plain,
         verdicts_streamed_plain)
+    from repro_torch.kernels.pack_planes.pack_planes import (pack_op,
+                                                             pack_plain)
     rng = np.random.default_rng(1)
     n, w = LJ_N, 2
     p = random_planes(rng, n, 64, 64, dev)
@@ -802,25 +814,49 @@ def kernel_timings(dev):
         lambda: streamed_admit_row(*args, fresh),
         lambda: admit_streamed_plain(*args, fresh), nbytes, ops,
         floor_q=n * q)
+
+    # the insert's repack at LiveJournal's n_cap: four (n_cap, 64) uint8
+    # 0/1 planes to (n_cap, 2) words; each plane byte read once, each word
+    # written once; a multiply, a shift and an OR per 8 bytes
+    n, k = PACK_N, 64
+    gen = torch.Generator(device=dev).manual_seed(2)
+    planes = tuple((torch.rand((n, k), generator=gen, device=dev) < 0.3)
+                   .to(torch.uint8) for _ in range(4))
+    out_bytes = 4 * n * 2 * 4
+    out["pack_planes_kernel"] = timed(
+        "pack_planes_kernel", f"n_cap={n} k=k'=64 uint8 planes",
+        lambda: pack_op(*planes), lambda: pack_plain(*planes),
+        4 * n * k + out_bytes, 4 * n * k // 8 * 3, floor_q=out_bytes,
+        plain_reps=2)
+    del planes
     return out
 
 
-def timed(name, shape, kernel, plain, nbytes, ops, floor_q=None):
-    """Kernel and plain times after a bitwise check on the timed inputs,
-    with the bound; with ``floor_q``, also ``launch_floor_ms``: the
-    device time of ``zero_`` on ``floor_q`` int8 bytes, the least a launch
-    that writes the kernel's output takes."""
+def timed(name, shape, kernel, plain, nbytes, ops, floor_q=None,
+          plain_reps=10):
+    """Kernel and plain times after a bitwise check on the timed inputs
+    (a tensor or a tuple of them; ``max_abs_err`` is its largest
+    difference, 0 or it raises), with the bound; with ``floor_q``, also
+    ``launch_floor_ms``: the device time of ``zero_`` on ``floor_q`` int8
+    bytes, the least a launch that writes the kernel's output takes."""
     import torch
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    if got.dtype != want.dtype or not torch.equal(got, want):
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = max((int((a.long() - b.long()).abs().max()) if a.numel() else 0
+               for a, b in zip(got, want)), default=0)
+    if len(got) != len(want) or err or any(
+            a.dtype != b.dtype or a.shape != b.shape
+            for a, b in zip(got, want)):
         raise AssertionError(f"{name} disagrees with its plain version at "
                              f"the main path's shape {shape}")
+    del got, want
     ms, host_ms = time_ms(kernel)
-    plain_ms, plain_host_ms = time_ms(plain, reps=10)
+    plain_ms, plain_host_ms = time_ms(plain, reps=plain_reps)
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = ops / PEAK_INT_OPS_PER_S * 1e3
-    out = dict(shape=shape, ms=ms, host_loop_ms=host_ms,
+    out = dict(shape=shape, max_abs_err=err, ms=ms, host_loop_ms=host_ms,
                plain_ms=plain_ms, plain_host_loop_ms=plain_host_ms,
                bytes=nbytes, ops=ops, bound_ms=max(by_bytes, by_ops),
                bound_by="bytes" if by_bytes >= by_ops else "operations")
@@ -835,8 +871,9 @@ def ptxas_summary(report):
     bytes]} from ``_build.ptxas_report``, names cut to the template."""
     out = {}
     for fn, r in report.items():
-        short = re.sub(r"\((admit|verdict)::Planes.*", "", fn)
-        short = re.sub(r"void \(anonymous namespace\)::|admit::|verdict::",
+        short = re.sub(r"\((admit::|verdict::|\(anonymous namespace\)::)"
+                       r"Planes.*", "", fn)
+        short = re.sub(r"(void )?\(anonymous namespace\)::|admit::|verdict::",
                        "", short)
         out[short] = [r.get("registers"), r.get("spill_stores"),
                       r.get("spill_loads")]
@@ -864,6 +901,7 @@ def main_path(dev, card):
     from repro_torch.kernels.bfs_prune.bfs_prune import bfs_admit_plane
     from repro_torch.kernels.dbl_query.dbl_query import (dbl_query_verdicts,
                                                          verdicts_plain)
+    from repro_torch.kernels.pack_planes.pack_planes import pack_label_planes
     from repro_torch.serve.engine import QueryEngine
     from repro_torch.serve.reach_server import ReachabilityServer
 
@@ -873,6 +911,7 @@ def main_path(dev, card):
 
     dbl_query_verdicts.launches = 0
     bfs_admit_plane.launches = 0
+    pack_label_planes.launches = 0
     t = time.perf_counter()
     g = make_graph(src, dst, n, m_cap=m + N_LJ_ROUNDS * INSERTS, device=dev)
     idx = DBLIndex.build(g, n_cap=n, k=64, k_prime=64, max_iters=64,
@@ -902,6 +941,7 @@ def main_path(dev, card):
         if r == 2:   # pipelined: the residue resolves after an insert
             srv.submit(u, v)
             ti = time.perf_counter()
+            packs = pack_label_planes.launches
             srv.insert(ns, nd)
             insert_s = time.perf_counter() - ti
             ans = srv.flush(consistency="as-of-submit")[0]
@@ -911,9 +951,14 @@ def main_path(dev, card):
             ans = srv.query(u, v)
             query_s = time.perf_counter() - t
             ti = time.perf_counter()
+            packs = pack_label_planes.launches
             srv.insert(ns, nd)
             insert_s = time.perf_counter() - ti
             mode = "query-then-insert"
+        if pack_label_planes.launches != packs + 1:
+            raise AssertionError(f"round {r}: the insert launched the pack "
+                                 f"kernel {pack_label_planes.launches - packs}"
+                                 " times, not once")
         after = srv.engine.stats.as_dict()
         residue = after["prune_hits"]["bfs"] - before["prune_hits"]["bfs"]
         hits = {k: after["prune_hits"][k] - before["prune_hits"][k]
@@ -925,7 +970,8 @@ def main_path(dev, card):
              rho=1 - residue / QUERIES, residue_lanes=residue,
              prune_hits=hits, card=card)
     launches = {"verdicts_kernel": dbl_query_verdicts.launches,
-                "admit_kernel": bfs_admit_plane.launches}
+                "admit_kernel": bfs_admit_plane.launches,
+                "pack_planes_kernel": pack_label_planes.launches}
     emit("launches", **launches)
     for name, c in launches.items():
         if c <= 0:
@@ -4885,7 +4931,15 @@ def main():
         "streamed_admit_kernel": (
             f"{csrc}/bfs_prune_streamed.cu",
             "src/repro/kernels/bfs_prune/bfs_prune.py:228"),
+        # replaces no TPU kernel (XLA packed there); held bitwise at its
+        # main-path shape by ``timed``
+        "pack_planes_kernel": (f"{csrc}/pack_planes.cu", None),
     }
+    # the pack's launches from main_path's reset on: every later phase of
+    # this process (each build and insert) adds to them
+    from repro_torch.kernels.pack_planes.pack_planes import pack_label_planes
+    launches["pack_planes_kernel"] = pack_label_planes.launches
+    worst["pack_planes_kernel"] = timings["pack_planes_kernel"]["max_abs_err"]
     kernels = []
     for name, (source, replaces) in meta.items():
         t = timings[name]

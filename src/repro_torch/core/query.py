@@ -47,8 +47,13 @@ class PackedLabels:
 
 
 def pack_labels(dl_in, dl_out, bl_in, bl_out) -> PackedLabels:
-    return PackedLabels(bitset.pack(dl_in), bitset.pack(dl_out),
-                        bitset.pack(bl_in), bitset.pack(bl_out))
+    """The four 0/1 planes packed into int32 words, each equal to
+    ``bitset.pack`` of its plane, through the op
+    ``repro_torch::pack_label_planes``: one kernel launch for CUDA planes,
+    ``bitset.pack`` for CPU planes."""
+    # imported here: the kernels' modules import this one
+    from repro_torch.kernels.pack_planes.pack_planes import pack_label_planes
+    return PackedLabels(*pack_label_planes(dl_in, dl_out, bl_in, bl_out))
 
 
 def rows(plane: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,7 @@ SIGNATURES = {
     "bfs_prune_streamed": {"bfs_admit_plane_streamed": (
         [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P,
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)},
+    "pack_planes": {"pack_label_planes": ([_P] * 8 + [_I] * 7 + [_P], _I)},
 }
 
 #: shared memory a block may take on Hopper (227 KB), see the opt-in in
@@ -171,7 +172,7 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-#: the torch operator library of the four kernels (``register_op``)
+#: the torch operator library of the kernels (``register_op``)
 _OPS = torch.library.Library("repro_torch", "DEF")
 
 

@@ -1,5 +1,5 @@
-"""Run some phases of ``chip_smoke.py`` alone on the card: build the four
-kernel libraries, then each named phase, in the order given.
+"""Run some phases of ``chip_smoke.py`` alone on the card: build the kernel
+libraries, then each named phase, in the order given.
 
     python tools/chip_phases.py kernel_times aot warmup
 
