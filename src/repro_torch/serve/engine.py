@@ -742,9 +742,10 @@ class QueryEngine:
             plane_repr=self.plane_repr, inplace=self.donate)
         il_kw = {}
         if idx.il_in is not None:
-            il_in, il_out, it_il = U.insert_update_plugin(
-                "il", g2, idx.il_in, idx.il_out, ns, nd, n_cap=idx.n_cap,
-                max_iters=self.max_iters)
+            with span("repro_torch.insert.il"):
+                il_in, il_out, it_il = U.insert_update_plugin(
+                    "il", g2, idx.il_in, idx.il_out, ns, nd,
+                    n_cap=idx.n_cap, max_iters=self.max_iters)
             il_kw = dict(il_in=il_in, il_out=il_out)
             iters = iters + it_il
         sat = U.saturated(iters, self.max_iters)

@@ -52,7 +52,9 @@ PARENT = {
     "repro_torch.insert": {None},
     "repro_torch.sync.insert_input": {"repro_torch.insert"},
     "repro_torch.sync.insert_keep": {"repro_torch.insert"},
-    "repro_torch.insert.fixpoint": {"repro_torch.insert"},
+    "repro_torch.insert.il": {"repro_torch.insert"},
+    "repro_torch.insert.fixpoint": {"repro_torch.insert",
+                                    "repro_torch.insert.il"},
     "repro_torch.sync.seed_keep": {"repro_torch.insert.fixpoint"},
     "repro_torch.sync.segment_keep": {"repro_torch.insert.fixpoint"},
     "repro_torch.sync.fixpoint_go": {"repro_torch.insert.fixpoint"},
@@ -183,6 +185,8 @@ def test_spans_nest_as_the_phases_do(case, recorder):
     # out-of-range ids
     never = {"repro_torch.sync.seed_keep", "repro_torch.sync.segment_keep"} \
         if case == "packed" else {"repro_torch.sync.segment_runs"}
+    if case != "il":
+        never.add("repro_torch.insert.il")
     assert seen == set(PARENT) - never
 
 
@@ -205,6 +209,64 @@ def test_insert_round_spans_count_the_fixpoint_rounds(plane_repr, max_iters,
     assert recorder.count("repro_torch.insert.round") == \
         sum(min(i, max_iters) for i in iters)
     assert recorder.count("repro_torch.insert.fixpoint") == 4
+
+
+class Stacks(Recorder):
+    """A ``Recorder`` that keeps every span open around each span."""
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        self.spans.append((name, tuple(self.open)))
+        self.open.append(name)
+        try:
+            yield
+        finally:
+            self.open.pop()
+
+    def inside(self, name, outer):
+        return sum(s == name and outer in o for s, o in self.spans)
+
+
+@pytest.mark.parametrize("case", ["bool", "il"])
+def test_the_il_span_holds_the_interval_fixpoints(case, monkeypatch):
+    """One ``repro_torch.insert.il`` an insert on an "il" index, none on a
+    DL/BL one; the interval hook's two fixpoint spans and all their
+    rounds nest inside it, the four DL/BL fixpoints outside it."""
+    rec = Stacks()
+    monkeypatch.setattr(tracing, "_range", rec)
+    monkeypatch.setattr(tracing, "_recording", lambda: True)
+    eng = QueryEngine(_index(case), bfs_chunk=16, bfs_kernel=True,
+                      device="cpu")
+    rng = np.random.default_rng(13)
+    total = 0
+    for _ in range(3):
+        ns = rng.integers(0, N, 30).astype(np.int32)
+        nd = rng.integers(0, N, 30).astype(np.int32)
+        rounds = 0
+        if case == "il":
+            # the same hook outside the engine: its rounds
+            idx = eng.index
+            g2 = G.insert_edges(idx.graph, torch.from_numpy(ns),
+                                torch.from_numpy(nd))
+            _, _, it = U.insert_update_plugin(
+                "il", g2, idx.il_in, idx.il_out, torch.from_numpy(ns),
+                torch.from_numpy(nd), n_cap=N, max_iters=eng.max_iters)
+            rounds = sum(min(i, eng.max_iters) for i in it)
+        rec.spans.clear()
+        eng.insert(ns, nd)
+        il = "repro_torch.insert.il"
+        assert rec.count(il) == (case == "il")
+        assert all(o == ("repro_torch.insert",)
+                   for s, o in rec.spans if s == il)
+        assert rec.inside("repro_torch.insert.fixpoint", il) == \
+            (2 if case == "il" else 0)
+        assert rec.count("repro_torch.insert.fixpoint") == \
+            4 + rec.inside("repro_torch.insert.fixpoint", il)
+        assert rec.inside("repro_torch.insert.round", il) == rounds
+        assert all("repro_torch.insert.fixpoint" in o for s, o in rec.spans
+                   if s == "repro_torch.insert.round")
+        total += rounds
+    assert (total > 0) == (case == "il")
 
 
 @pytest.mark.parametrize("frontier_dtype", ["int8", "packed"])

@@ -65,17 +65,23 @@ def _scoped(fn, depth):
     return call
 
 
+#: (plane representation, label families) of each served layout
+CASES = {"bool": ("bool", ("dl", "bl")), "packed": ("packed", ("dl", "bl")),
+         "il": ("bool", ("dl", "bl", "il"))}
+
+
 @pytest.mark.chip
-@pytest.mark.parametrize("plane_repr", ["bool", "packed"])
-def test_every_sync_of_the_served_path_is_in_a_sync_span(plane_repr,
-                                                         monkeypatch):
+@pytest.mark.parametrize("case", list(CASES))
+def test_every_sync_of_the_served_path_is_in_a_sync_span(case, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = "cuda"
+    plane_repr, families = CASES[case]
     src, dst = power_law(N, M, seed=1)
     g = make_graph(src, dst, N, m_cap=M + 2000, device=dev)
     idx = DBLIndex.build(g, n_cap=N, k=64, k_prime=64, check="raise",
-                         plane_repr=plane_repr, device=dev)
+                         plane_repr=plane_repr, families=families,
+                         device=dev)
     eng = QueryEngine(idx, bfs_chunk=64, bfs_kernel=True,
                       plane_repr=plane_repr,
                       frontier_dtype="packed" if plane_repr == "packed"
@@ -118,11 +124,11 @@ def test_every_sync_of_the_served_path_is_in_a_sync_span(plane_repr,
                 srv.delete(ns[:50], nd[:50])
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    print(f"\n{plane_repr}: syncs / spans by name "
+    print(f"\n{case}: syncs / spans by name "
           + str({name: f"{n}/{spans.entered[name]}"
                  for name, n in seen.items()}))
     for (inner, where), n in outside.items():
-        print(f"{plane_repr}: {n} outside a sync span, in {inner}:\n{where}")
+        print(f"{case}: {n} outside a sync span, in {inner}:\n{where}")
     assert seen["repro_torch.sync.bfs_go"] > 0
     assert seen["repro_torch.sync.fixpoint_go"] > 0
     assert not outside, list(outside)
