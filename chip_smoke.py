@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure raises and the exit code is not 0:
 
 1. device: CUDA must be present; prints the card's name and power limit.
-2. build: compiles the five CUDA kernels from
+2. build: compiles the six CUDA sources from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, started
    together) and prints every kernel's registers and spills per template
    instance (``-Xptxas -v``).
@@ -29,7 +29,16 @@ Phases, one JSON line each; any failure raises and the exit code is not 0:
    ``bitset.pack`` and timed the same way at the benchmark's LiveJournal
    n_cap (4 847 571 rows, k = k' = 64, uint8 planes); the CPU tests and
    the ``chip`` tests of ``tests/test_torch_pack_planes.py`` cover its
-   other widths and alignments.
+   other widths and alignments.  The BFS relax kernel (``relax_timings``,
+   op ``repro_torch::bfs_relax``) is held bitwise to its plain version on
+   every round of real residue BFS runs at the benchmark's two graph
+   shapes (``reachbench/configs`` ``wikitalk`` and ``lj``, made on the
+   card by ``reachbench.gen`` at published size, DBL k = k' = 64): a clean
+   batch, then after an insert and a delete of ``RELAX_UPDATES`` edges a
+   batch on dirty labels, whose lanes carry their edge-count cutoffs
+   (``m_cut``); then timed at each shape's first round and at its round
+   with the most frontier edges (``relax_kernel.<config>.<round>``;
+   ``relax_kernel`` is wiki-Talk's busiest round).
 4. main path: the LJ preset at full size (n = 60 000, m = 850 000) is
    built with ``DBLIndex.build(k=64, k_prime=64, max_iters=64)`` and served
    by a ``ReachabilityServer`` over ``QueryEngine(bfs_chunk=64,
@@ -833,12 +842,14 @@ def kernel_timings(dev):
 
 
 def timed(name, shape, kernel, plain, nbytes, ops, floor_q=None,
-          plain_reps=10):
+          plain_reps=10, plain_waits=False):
     """Kernel and plain times after a bitwise check on the timed inputs
     (a tensor or a tuple of them; ``max_abs_err`` is its largest
     difference, 0 or it raises), with the bound; with ``floor_q``, also
     ``launch_floor_ms``: the device time of ``zero_`` on ``floor_q`` int8
-    bytes, the least a launch that writes the kernel's output takes."""
+    bytes, the least a launch that writes the kernel's output takes.
+    ``plain_waits``: the plain version reads the host, which no CUDA
+    graph can capture, so its time is the host loop's alone."""
     import torch
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -853,7 +864,12 @@ def timed(name, shape, kernel, plain, nbytes, ops, floor_q=None,
                              f"the main path's shape {shape}")
     del got, want
     ms, host_ms = time_ms(kernel)
-    plain_ms, plain_host_ms = time_ms(plain, reps=plain_reps)
+    if plain_waits:
+        plain()
+        plain_ms = plain_host_ms = _events_ms(
+            lambda: [plain() for _ in range(plain_reps)], plain_reps)
+    else:
+        plain_ms, plain_host_ms = time_ms(plain, reps=plain_reps)
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = ops / PEAK_INT_OPS_PER_S * 1e3
     out = dict(shape=shape, max_abs_err=err, ms=ms, host_loop_ms=host_ms,
@@ -863,6 +879,130 @@ def timed(name, shape, kernel, plain, nbytes, ops, floor_q=None,
     if floor_q is not None:
         zeros = torch.empty(floor_q, dtype=torch.int8, device="cuda")
         out["launch_floor_ms"] = time_ms(zeros.zero_)[0]
+    return out
+
+
+#: the relax phase's graphs (``reachbench/configs``), and the pairs of its
+#: clean and its dirty batch on each
+RELAX_CONFIGS = {"wikitalk": 1024, "lj": 128}
+#: edges inserted, then deleted, before the dirty batch
+RELAX_UPDATES = 1000
+
+
+def relax_graph(name, dev):
+    """(n, m, Graph with room for the updates, held-out tails, heads) of a
+    benchmark configuration's graph, made on the card from seed 0."""
+    import torch
+    from reachbench.gen import chung_lu, graph_args
+    from repro_torch.core.graph import ALIVE, Graph
+    cfg = json.loads((ROOT / "reachbench" / "configs" / f"{name}.json")
+                     .read_text())
+    gr = cfg["graph"]
+    n, m = int(gr["n"]), int(gr["m"])
+    src, dst = chung_lu(n, m, RELAX_UPDATES, **graph_args(gr), seed=0,
+                        device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    s = torch.zeros(m + RELAX_UPDATES, **i32)
+    d = torch.zeros(m + RELAX_UPDATES, **i32)
+    s[:m], d[:m] = src[:m], dst[:m]
+    g = Graph(s, d, torch.tensor(n, **i32), m,
+              torch.full((m + RELAX_UPDATES,), ALIVE, **i32))
+    return n, m, g, src[m:].cpu().numpy(), dst[m:].cpu().numpy()
+
+
+def relax_timings(dev, card):
+    """The relax kernel on real rounds: for each of ``RELAX_CONFIGS`` a DBL
+    index (k = k' = 64) behind a ``ReachabilityServer`` answers a batch of
+    random pairs on clean labels, then one on dirty labels after an insert
+    and a delete of ``RELAX_UPDATES`` edges.  Every relax step of both
+    batches runs the kernel and the plain version on the same operands
+    and must agree bitwise (one ``relax_check`` line a graph); the first
+    round and the round whose frontier has the most live edges are kept
+    and timed by ``timed``.  The bound is the function's compulsory bytes:
+    the frontier plane read and the output written (2 n Q), each slot's
+    live byte and int64 tail (9 m), and each live slot on the frontier's
+    int64 head (8); the kernel's rereads of a tail's row and writes of a
+    head's row for each such slot are its gather cost, beyond the bound.
+    Returns the timings by name."""
+    import torch
+    from repro_torch.core.dbl import DBLIndex
+    from repro_torch.kernels.bfs_relax import bfs_relax as R
+    from repro_torch.serve.engine import QueryEngine
+    from repro_torch.serve.reach_server import ReachabilityServer
+    out = {}
+    kernel = R.relax_op
+    for name, pairs in RELAX_CONFIGS.items():
+        rng = np.random.default_rng(7)
+        n, m, g, held_s, held_d = relax_graph(name, dev)
+        idx = DBLIndex.build(g, n_cap=n, k=64, k_prime=64, device=dev)
+        srv = ReachabilityServer(None, engine=QueryEngine(
+            idx, bfs_chunk=BFS_CHUNK, bfs_kernel=True))
+        kept = {}
+        rounds = {"clean": 0, "dirty": 0}
+        uncut = 0
+
+        def checked(frontier, tails, heads, live, m_cut, n_cap, ftype,
+                    batch):
+            nonlocal uncut
+            got = kernel(frontier, tails, heads, live, m_cut, n_cap, ftype)
+            want = R.relax_plain(frontier, tails, heads, live, m_cut, n_cap,
+                                 ftype)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"relax_kernel disagrees with its plain version on "
+                    f"{name}'s {batch} round {rounds[batch]}")
+            rounds[batch] += 1
+            uncut += m_cut is None
+            if batch != "dirty" or frontier.shape[1] != BFS_CHUNK:
+                return got
+            # the dirty batch's full chunks are timed, as churn runs them
+            edges = int((frontier.any(1)[tails] & live).sum())
+            args = (frontier.clone(), tails, heads, live, m_cut, n_cap,
+                    ftype)
+            if "first" not in kept:
+                kept["first"] = (edges, args)
+            if edges > kept.get("busiest", (-1,))[0]:
+                kept["busiest"] = (edges, args)
+            return got
+        try:
+            for batch in ("clean", "dirty"):
+                if batch == "dirty":
+                    srv.insert(held_s, held_d)
+                    # distinct pairs: each deletes its one slot
+                    gone = torch.from_numpy(rng.choice(
+                        m, RELAX_UPDATES, replace=False)).to(dev)
+                    srv.delete(g.src[gone].cpu().numpy(),
+                               g.dst[gone].cpu().numpy())
+                R.relax_op = functools.partial(checked, batch=batch)
+                srv.query(rng.integers(0, n, pairs),
+                          rng.integers(0, n, pairs))
+                torch.cuda.synchronize()
+        finally:
+            R.relax_op = kernel
+        if not rounds["dirty"] or uncut:
+            raise AssertionError(f"{name}: {rounds} rounds, {uncut} without "
+                                 "m_cut: the dirty batch must reach the BFS "
+                                 "and every round carry its cutoffs")
+        emit("relax_check", graph=name, n=n, m=m, pairs=pairs,
+             rounds=rounds, busiest_edges=kept["busiest"][0],
+             bitwise=True, card=card)
+        del srv, idx
+        for which, (edges, args) in kept.items():
+            q = args[0].shape[1]
+            m_cap = args[1].shape[0]
+            nbytes = 2 * n * q + 9 * m_cap + 8 * edges
+            out[f"relax_kernel.{name}.{which}"] = dict(
+                timed("relax_kernel",
+                      f"{name} n_cap={n} m_cap={m_cap} Qc={q} m_cut, "
+                      f"{which} round: {edges} frontier edges",
+                      lambda a=args: R.relax_op(*a),
+                      lambda a=args: R.relax_plain(*a), nbytes,
+                      4 * m_cap + edges * q, floor_q=n * q,
+                      plain_waits=True),
+                frontier_edges=edges)
+        del kept
+        torch.cuda.empty_cache()
+    out["relax_kernel"] = out["relax_kernel.wikitalk.busiest"]
     return out
 
 
@@ -901,6 +1041,7 @@ def main_path(dev, card):
     from repro_torch.kernels.bfs_prune.bfs_prune import bfs_admit_plane
     from repro_torch.kernels.dbl_query.dbl_query import (dbl_query_verdicts,
                                                          verdicts_plain)
+    from repro_torch.kernels.bfs_relax.bfs_relax import bfs_relax
     from repro_torch.kernels.pack_planes.pack_planes import pack_label_planes
     from repro_torch.serve.engine import QueryEngine
     from repro_torch.serve.reach_server import ReachabilityServer
@@ -912,6 +1053,7 @@ def main_path(dev, card):
     dbl_query_verdicts.launches = 0
     bfs_admit_plane.launches = 0
     pack_label_planes.launches = 0
+    bfs_relax.launches = 0
     t = time.perf_counter()
     g = make_graph(src, dst, n, m_cap=m + N_LJ_ROUNDS * INSERTS, device=dev)
     idx = DBLIndex.build(g, n_cap=n, k=64, k_prime=64, max_iters=64,
@@ -971,7 +1113,8 @@ def main_path(dev, card):
              prune_hits=hits, card=card)
     launches = {"verdicts_kernel": dbl_query_verdicts.launches,
                 "admit_kernel": bfs_admit_plane.launches,
-                "pack_planes_kernel": pack_label_planes.launches}
+                "pack_planes_kernel": pack_label_planes.launches,
+                "relax_kernel": bfs_relax.launches}
     emit("launches", **launches)
     for name, c in launches.items():
         if c <= 0:
@@ -4899,6 +5042,9 @@ def main():
     emit("parity", cases=cases, max_abs_err=worst, bitwise=True)
     timings = kernel_timings(dev)
     emit("kernel_times", card=card, **timings)
+    timings.update(relax_timings(dev, card))
+    emit("relax_times", card=card, **{k: v for k, v in timings.items()
+                                      if k.startswith("relax_kernel.")})
 
     launches = main_path(dev, card)
     launches.update(dynamic_phase(dev, card))
@@ -4934,12 +5080,19 @@ def main():
         # replaces no TPU kernel (XLA packed there); held bitwise at its
         # main-path shape by ``timed``
         "pack_planes_kernel": (f"{csrc}/pack_planes.cu", None),
+        # replaces no TPU kernel (XLA relaxed there); held bitwise on every
+        # round of ``relax_timings``
+        "relax_kernel": (f"{csrc}/bfs_relax.cu", None),
     }
-    # the pack's launches from main_path's reset on: every later phase of
-    # this process (each build and insert) adds to them
+    # the pack's and the relax's launches from main_path's reset on: every
+    # later phase of this process (each build and insert, each BFS round)
+    # adds to them; a relax step is the row pass and relax_kernel
+    from repro_torch.kernels.bfs_relax.bfs_relax import bfs_relax
     from repro_torch.kernels.pack_planes.pack_planes import pack_label_planes
     launches["pack_planes_kernel"] = pack_label_planes.launches
+    launches["relax_kernel"] = bfs_relax.launches
     worst["pack_planes_kernel"] = timings["pack_planes_kernel"]["max_abs_err"]
+    worst["relax_kernel"] = timings["relax_kernel"]["max_abs_err"]
     kernels = []
     for name, (source, replaces) in meta.items():
         t = timings[name]

@@ -249,21 +249,17 @@ def relax(frontier: torch.Tensor, tails: torch.Tensor, heads: torch.Tensor,
     """(n_cap, Q) bool: one BFS level of Q lanes.  Row x is set on lane q
     when a ``live`` edge ``tails[e] -> heads[e] = x`` has its tail on lane
     q's ``frontier`` (n_cap, Q) bool and, with ``m_cut`` (Q,), an edge
-    index ``e < m_cut[q]``.  Only the edges whose tail is on some lane's
-    frontier are gathered (``nonzero``); their lane rows are OR-ed into
-    their heads by ``index_reduce_("amax")`` on ``ftype``.  The relax step
-    of :func:`pruned_bfs` and of the B-BFS baseline; edges as
+    index ``e < m_cut[q]``.  Through the op ``repro_torch::bfs_relax``:
+    one step of its kernel for CUDA operands, with no host read; for CPU
+    operands its plain version, which gathers the frontier's edges
+    (``nonzero``, a host read) and OR-s their lane rows into their heads
+    by ``index_reduce_("amax")`` on ``ftype``.  The relax step of
+    :func:`pruned_bfs` and of the B-BFS baseline; edges as
     :func:`relax_edges` gives them (a backward step passes the edges'
     heads as ``tails``)."""
-    eidx = torch.nonzero(frontier.any(1)[tails] & live).squeeze(1)
-    contrib = frontier[tails[eidx]]
-    if m_cut is not None:
-        contrib &= eidx[:, None] < m_cut[None, :]
-    nxt = torch.zeros((n_cap, frontier.shape[1]), dtype=ftype,
-                      device=frontier.device)
-    nxt.index_reduce_(0, heads[eidx], contrib.to(ftype), "amax",
-                      include_self=True)
-    return nxt > 0
+    # imported here: the kernels' modules import this one
+    from repro_torch.kernels.bfs_relax.bfs_relax import bfs_relax
+    return bfs_relax(frontier, tails, heads, live, m_cut, n_cap, ftype)
 
 
 def bfs_prologue(g: Graph, p: PackedLabels | None, u: torch.Tensor,
@@ -327,7 +323,7 @@ def bfs_round(carry, consts, *, frontier_dtype: str = "int8"):
     cut-admitted) edges (:func:`relax`), gate by admit, visited and hit,
     and gather the targets' rows.  The packed path keeps frontier,
     visited and hit in words and relaxes through the frontier's (n_cap,
-    Qc) bytes: one scatter-max, as the int8 path, where an OR of words by
+    Qc) bytes: one relax step, as the int8 path, where an OR of words by
     head would take a scan of ``log2`` of the longest in-edge run (a host
     read, or ``log2(m_cap)`` steps where there is none); the words are
     the same."""

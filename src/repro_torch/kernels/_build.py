@@ -50,6 +50,7 @@ SIGNATURES = {
         [_P, _P, _I, _P, _P, _I, _I, _P, _P, _I, _P, _P,
          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I)},
     "pack_planes": {"pack_label_planes": ([_P] * 8 + [_I] * 7 + [_P], _I)},
+    "bfs_relax": {"bfs_relax": ([_P] * 7 + [_I] * 4 + [_P], _I)},
 }
 
 #: shared memory a block may take on Hopper (227 KB), see the opt-in in

@@ -86,6 +86,7 @@ modeled halo bytes and rounds (zero on the other layouts).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 import warnings
@@ -107,6 +108,7 @@ from repro_torch.core.dbl import (DBLIndex, LabelSaturationWarning,
                                   _saturation_message)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bfs_prune.ops import admit_plane
+from repro_torch.kernels.bfs_relax.bfs_relax import waits_on_host
 from repro_torch.kernels.dbl_query.ops import (StreamILFallbackWarning,
                                                verdicts_device)
 from repro_torch.launch.mesh import Mesh
@@ -641,12 +643,15 @@ class QueryEngine:
         with span("repro_torch.query.residue.chunk"):
             known, carry, consts, go = prologue(self._phase_graph(g), p, il,
                                                 uu, vv, m_cut, d_stale)
+            # the plain relax's one read a round, the count of its
+            # frontier's edges, lies inside the round torch.export takes
+            # whole; the relax kernel reads nothing, so no span opens
+            edges = span if waits_on_host(uu.device) else \
+                contextlib.nullcontext
             it = 0
             while it < self.max_iters and (it < min_rounds or _go(go)):
-                # the round's one read, the count of its frontier's edges,
-                # lies inside the round torch.export takes whole
                 with span("repro_torch.query.residue.round"), \
-                        span("repro_torch.sync.bfs_edges"):
+                        edges("repro_torch.sync.bfs_edges"):
                     carry, go = round_(carry, consts)
                 it += 1
             return known | Q.bfs_hits(carry, c, self.frontier_dtype)

@@ -23,8 +23,10 @@ the device, or a copy to it) and nothing else, so their count is the
 number of such calls; a library call may wait more than once inside
 (``isin``, ``sync.delete_match``).  No span sits inside a function that
 ``torch.export`` takes: spans wrap the calls to those functions.  So
-``repro_torch.sync.bfs_edges`` encloses a whole BFS round, whose one read
-(the count of the frontier's edges) lies inside the exported round.
+``repro_torch.sync.bfs_edges`` encloses a whole BFS round where its relax
+step reads the host (the plain relax, on the CPU: the count of the
+frontier's edges, inside the exported round); the relax kernel on the
+card reads nothing, and the span does not open there.
 """
 from __future__ import annotations
 

@@ -34,6 +34,7 @@ OPS = {"verdicts": "repro_torch.dbl_query_verdicts.default",
        "streamed_verdicts": "repro_torch.dbl_query_verdicts_streamed.default",
        "admit": "repro_torch.bfs_admit_plane.default",
        "streamed_admit": "repro_torch.bfs_admit_plane_streamed.default"}
+RELAX_OP = "repro_torch.bfs_relax.default"
 
 
 def _edges(n, m, m_extra):
@@ -240,7 +241,8 @@ def test_aot_programs_hold_kernel_ops_and_load_in_a_fresh_process(
         tmp_path, streaming):
     """With ``bfs_kernel=True`` the exported graphs call the kernels as
     ``repro_torch`` op nodes (the label phase the verdict op, the residue
-    prologue the verdict and admit ops); a fresh process, which registers
+    prologue the verdict and admit ops, the BFS round the relax op); a
+    fresh process, which registers
     the ops and the dataclasses at import, loads every file and answers
     as this one does."""
     idx, _, _ = _t_index()
@@ -260,6 +262,9 @@ def test_aot_programs_hold_kernel_ops_and_load_in_a_fresh_process(
     assert not any(OPS[other + k] in t for k in ("verdicts", "admit")
                    for t in targets.values())
     assert not any(o in targets["bfs-round-64"] for o in OPS.values())
+    # each bucket's round relaxes through its own op, taken whole
+    for tag, t in targets.items():
+        assert (RELAX_OP in t) == tag.startswith("bfs-round-"), tag
     rng = np.random.default_rng(9)
     want = eng.run(idx, rng.integers(0, 256, 300), rng.integers(0, 256, 300))
 

@@ -18,6 +18,8 @@ from repro_torch.core import update as U
 from repro_torch.core.dbl import DBLIndex
 from repro_torch.core.graph import make_graph
 from repro_torch.graphs.generators import power_law
+from repro_torch.kernels.bfs_relax import bfs_relax
+from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.engine import QueryEngine
 from repro_torch.serve.reach_server import ReachabilityServer
 
@@ -176,8 +178,8 @@ def test_spans_nest_as_the_phases_do(case, recorder):
         assert parent in PARENT[name], (name, parent)
         # a sync span encloses the read alone
         assert parent is None or not parent.startswith("repro_torch.sync.")
-    # a BFS round's read lies inside the exported round: its sync span
-    # is the round's one child
+    # on the CPU a BFS round's read (the plain relax's) lies inside the
+    # exported round: its sync span is the round's one child
     assert recorder.count("repro_torch.sync.bfs_edges") == \
         recorder.count("repro_torch.query.residue.round")
     seen = {name for name, _ in recorder.spans}
@@ -288,6 +290,28 @@ def test_bfs_round_spans_count_the_loop_rounds(frontier_dtype, recorder):
     assert recorder.count("repro_torch.query.residue.round") == len(rounds)
     assert recorder.count("repro_torch.sync.bfs_go") >= \
         recorder.count("repro_torch.query.residue.chunk")
+
+
+@pytest.mark.parametrize("waits", [True, False], ids=["plain", "kernel"])
+def test_the_round_opens_its_sync_span_where_the_relax_waits(
+        waits, recorder, monkeypatch):
+    """``sync.bfs_edges`` opens inside a round exactly where the relax
+    step waits on the host (``bfs_relax.waits_on_host`` of the operands'
+    device: the plain relax on the CPU, not the kernel on the card); the
+    rounds are counted either way."""
+    asked = []
+
+    def rule(device):
+        asked.append(torch.device(device).type)
+        return waits
+    monkeypatch.setattr(engine_mod, "waits_on_host", rule)
+    _serve("bool")
+    rounds = recorder.count("repro_torch.query.residue.round")
+    assert rounds > 0 and set(asked) == {"cpu"}
+    assert recorder.count("repro_torch.sync.bfs_edges") == \
+        (rounds if waits else 0)
+    assert bfs_relax.waits_on_host("cpu") and \
+        not bfs_relax.waits_on_host("cuda")
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -5,7 +5,9 @@ libraries, then each named phase, in the order given.
 
 Phases: ``kernel_times`` (``chip_smoke.kernel_timings``: device, host and
 plain times a launch of each kernel at the main paths' shapes, each held
-bitwise against its plain version), and the phases that take the device
+bitwise against its plain version), ``relax`` (``chip_smoke.relax_timings``:
+the relax kernel held bitwise on every round of real residue BFS runs at
+the benchmark's wiki-Talk and LiveJournal shapes, and timed), and the phases that take the device
 and the card's line: ``main``, ``dynamic``, ``il_packed``, ``baselines``,
 ``aot``, ``warmup``, ``gnn``, ``mind``, ``lm``, ``train``.  Each phase
 prints its own JSON lines, as in the whole script, and then one line
@@ -31,9 +33,10 @@ def main(argv=None) -> int:
               "mind": cs.mind_phase, "lm": cs.lm_phase,
               "train": cs.train_phase}
     names = sys.argv[1:] if argv is None else argv
-    unknown = [n for n in names if n != "kernel_times" and n not in phases]
+    unknown = [n for n in names
+               if n not in ("kernel_times", "relax") and n not in phases]
     if not names or unknown:
-        print(f"give phases among kernel_times, {', '.join(phases)}"
+        print(f"give phases among kernel_times, relax, {', '.join(phases)}"
               + (f"; unknown: {unknown}" if unknown else ""),
               file=sys.stderr)
         return 2
@@ -52,6 +55,8 @@ def main(argv=None) -> int:
     for name in names:
         if name == "kernel_times":
             cs.emit("kernel_times", card=card, **cs.kernel_timings(dev))
+        elif name == "relax":
+            cs.emit("relax_times", card=card, **cs.relax_timings(dev, card))
         else:
             cs.emit(f"{name}_launches", launches=phases[name](dev, card))
     return 0
